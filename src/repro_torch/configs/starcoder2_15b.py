@@ -1,0 +1,18 @@
+"""starcoder2-15b [dense]: 40L d_model=6144 48H (GQA kv=4) d_ff=24576
+vocab=49152 — GQA, RoPE.  [arXiv:2402.19173; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="starcoder2-15b",
+    family="dense",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=4,
+    d_head=128,
+    d_ff=24576,
+    vocab_size=49_152,
+    rope_theta=100_000.0,
+    mlp_gated=False,          # starcoder2 uses plain GELU MLP
+    source="arXiv:2402.19173; hf",
+)
