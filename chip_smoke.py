@@ -7,8 +7,9 @@ Run from the root of a checkout.  Phases, each of which raises (exit
 code 1) on failure:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of the Hopper kernel library from ``src/`` (nvcc, into
-   ``build/repro_torch/``).
+   and the build of the four Hopper kernel libraries from ``src/`` (nvcc,
+   into ``build/repro_torch/``, all started together), with each build's
+   seconds and ptxas registers.
 2. Kernel against its plain version on the card: the fused multi-set XAM
    search (CUDA) against ``xam_search_multiset_plain`` over int8 and
    packed8 planes, both scorings, dead blocks, zero-mask rows and empty
@@ -23,7 +24,25 @@ code 1) on failure:
    logits outside rtol 1e-2/atol 5e-2) and to the greedy margin rule —
    and per-stage times.  Before it, the same comparison at full width and
    4 layers is held to rtol 1e-2/atol 5e-2 itself.
+4. The slice-2 kernels against their plain versions, exact equality, then
+   timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
+   32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
+   queries), the string match (edge cases, then the 500 MiB corpus with
+   P = 12) and the flat XAM search (the Fig. 6 shape and a 4096 x 32 x
+   65,536 dedup shape, int8 and packed8).
+5. The hash table: the host and device backends through one 2,000-op
+   schedule with wear tracking, bit-identical on the card; then one
+   Fig. 12-14 point, ``HopscotchTable(17, window=32, backend="device")``
+   filled to density 0.7 in random order and driven by 8,192 YCSB ops
+   (95% reads in one lookup batch), every key found with its value, and
+   lookup launches equal to the window lookups made.
+6. String match and the flat-CAM API: ``stringmatch.find`` of 32 patterns
+   over the 500 MiB corpus, each count equal to the plain version's;
+   ``MonarchDevice()`` at its defaults filled, 256 lookups of stored keys,
+   64 of absent keys and a masked search, flat launches equal to its
+   ``S set=`` commands; ``dedup_mask`` at the dedup shape.
 
+Every path's launch counts are zeroed just before it and read just after.
 The lines before the last are the phase reports, one JSON object with
 every kernel's numbers and the card's ``nvidia-smi`` name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -31,6 +50,7 @@ CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -299,7 +319,6 @@ def shallow_resume_check(np, torch) -> dict:
     ``SHALLOW_LAYERS`` layers, held to RTOL/ATOL and the greedy margin
     rule.  As in serving, the prefix KV comes from an earlier prompt that
     shares the 48-token prefix and differs after it."""
-    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer
 
@@ -456,6 +475,495 @@ def serve_phase(np, torch) -> dict:
                              "decoded_agree": agree}}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 1: build every kernel library, all nvcc runs started together.
+# ---------------------------------------------------------------------------
+
+KERNEL_MODULES = {
+    "xam_search_multiset": "repro_torch.kernels.xam_search.kernel:library",
+    "xam_search": "repro_torch.kernels.xam_search.kernel:flat_library",
+    "hopscotch_lookup": "repro_torch.kernels.hopscotch.kernel:library",
+    "string_match": "repro_torch.kernels.string_match.kernel:library",
+}
+
+
+def build_all() -> dict:
+    import concurrent.futures
+    import importlib
+
+    def one(spec):
+        mod, fn = spec.split(":")
+        return getattr(importlib.import_module(mod), fn)()
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_MODULES)) as ex:
+        libs = dict(zip(KERNEL_MODULES,
+                        ex.map(one, KERNEL_MODULES.values())))
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, lib in libs.items():
+        log(f"kernel library {lib.path.relative_to(ROOT)} built in "
+            f"{lib.build_seconds:.2f} s")
+        for line in lib.ptxas_lines():
+            log(f"ptxas ({name}): {line}")
+        out[name] = {"build_s": lib.build_seconds,
+                     "ptxas": lib.ptxas_lines()}
+    log(f"phase 1: four libraries built in {wall:.2f} s wall")
+    return out
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.xam_search import ops as xam
+    xam.LAUNCH_COUNT = xam.ADMIT_LAUNCH_COUNT = xam.FLAT_LAUNCH_COUNT = 0
+    hop.LAUNCH_COUNT = sm.LAUNCH_COUNT = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.xam_search import ops as xam
+    return {"xam_search_multiset": xam.LAUNCH_COUNT,
+            "xam_search": xam.FLAT_LAUNCH_COUNT,
+            "hopscotch_lookup": hop.LAUNCH_COUNT,
+            "string_match": sm.LAUNCH_COUNT}
+
+
+def timed_row(timer, name, kern, plain, n_bytes, n_ops, reps, **extra):
+    """Kernel and plain version timed as phase 2 times them, beside the
+    bound (the larger of bytes / HBM rate and operations / int8 rate)."""
+    call_ms, plain_call_ms = timer.call_ms(kern), timer.call_ms(plain)
+    ms = timer.graph_ms(kern, reps=reps)
+    plain_ms = timer.graph_ms(plain, reps=reps)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    row = {"shape": name, **extra, "ms": ms, "plain_ms": plain_ms,
+           "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": int(n_bytes)}
+    log(f"time {name}: kernel {ms:.6f} ms (per call with host "
+        f"{call_ms:.6f}), plain {plain_ms:.6f} ms ({plain_call_ms:.6f}), "
+        f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}, {n_bytes} B)")
+    return row
+
+
+def assert_equal(torch, got, want, what: str) -> int:
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = (int((got.long() - want.long()).abs().max())
+                if got.shape == want.shape else -1)
+        raise AssertionError(f"kernel != plain: {what} (max diff {diff})")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the slice-2 kernels against their plain versions, then timed.
+# ---------------------------------------------------------------------------
+
+HOP_SIZES = [("path table, 2^17 slots", 17, 8192),
+             ("paper's largest table, 2^25 slots", 25, 1 << 20)]
+CORPUS_BYTES = 500 * 2 ** 20        # benchmarks/string_match.py WORKING_SET
+DEDUP = (4096, 32, 65536)           # fingerprints x bits x columns
+FIG6 = (1, 64, 512)                 # one key against one Monarch set
+
+
+def hop_case(torch, log2_n, window, n_q, seed):
+    """Synthetic key planes of 2^log2_n + 2H slots made on the card, queries
+    with homes in [0, n) and a planted hit for every other query."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1 << log2_n
+    slots = n + 2 * window
+    rnd = lambda size, lo, hi: torch.randint(lo, hi, size, generator=g,
+                                             device="cuda", dtype=torch.int32)
+    t_lo, t_hi = rnd((slots,), -2 ** 31, 2 ** 31), rnd((slots,), -2 ** 31,
+                                                      2 ** 31)
+    homes = rnd((n_q,), 0, n)
+    q_lo, q_hi = rnd((n_q,), -2 ** 31, 2 ** 31), rnd((n_q,), -2 ** 31,
+                                                    2 ** 31)
+    at = (homes + rnd((n_q,), 0, window)).long()
+    q_lo[::2], q_hi[::2] = t_lo[at[::2]], t_hi[at[::2]]
+    return t_lo, t_hi, homes, q_lo, q_hi
+
+
+def kernels_phase(np, torch, timer, corpus_t) -> dict:
+    """Exact equality of each new kernel with its plain version at the
+    path's shapes and the edge cases, then the timings.  Returns
+    {kernel: {"max_abs_err", "shapes"}}."""
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+
+    t0 = time.perf_counter()
+    out = {}
+    # Hopscotch lookup: H in {4, 32, 128} at both table sizes.
+    rows, n_cases = [], 0
+    for name, log2_n, n_q in HOP_SIZES:
+        for window in (4, 32, 128):
+            ops_ = hop_case(torch, log2_n, window, n_q, seed=window + log2_n)
+            got = hop.hopscotch_lookup_device(*ops_, window=window)
+            want = hopscotch_lookup_plain(*ops_, window)
+            assert_equal(torch, got, want, f"hopscotch {name} H={window}")
+            if not bool((want[::2] >= 0).all()):
+                raise AssertionError("a planted hopscotch hit was missed")
+            n_cases += 1
+            touched = torch.where(want >= 0, want + 1, window)
+            n_bytes = 8 * int(touched.sum()) + 16 * n_q
+            rows.append(timed_row(
+                timer, f"hopscotch {name}, H={window}, Q={n_q}",
+                lambda: hop.hopscotch_lookup_device(*ops_, window=window),
+                lambda: hopscotch_lookup_plain(*ops_, window),
+                n_bytes, 2 * int(touched.sum()), reps=5 if n_q > 8192 else 20,
+                log2_slots=log2_n, window=window, queries=n_q))
+            del ops_
+    log(f"hopscotch kernel == plain version on {n_cases} cases")
+    out["hopscotch_lookup"] = {"max_abs_err": 0.0, "shapes": rows}
+
+    # String match: edge cases, then the 500 MiB corpus with P = 12.
+    rng = np.random.default_rng(3)
+    edge = [(1, 1), (4096, 1), (4096 * 3 + 7, 3), (20000, 4096), (10, 11),
+            (4096 * 2 + 5, 12)]
+    for n, p in edge:
+        text = rng.integers(97, 99, n).astype(np.uint8)
+        pat = rng.integers(97, 99, p).astype(np.uint8)
+        if p <= n:
+            s = max(0, min(4096 - p // 2, n - p))
+            text[s:s + p] = pat
+        tt, pt = torch.from_numpy(text).cuda(), torch.from_numpy(pat).cuda()
+        assert_equal(torch, sm.string_match(tt, pt),
+                     string_match_plain(tt, pt), f"string match N={n} P={p}")
+    n = corpus_t.shape[0]
+    at = n // 4 + 1
+    pat_t = corpus_t[at:at + 12].clone()
+    got = sm.string_match(corpus_t, pat_t)
+    assert_equal(torch, got, string_match_plain(corpus_t, pat_t),
+                 "string match, 500 MiB corpus, P=12")
+    if int(got[at]) != 1:
+        raise AssertionError("the 500 MiB corpus lost its own pattern")
+    log(f"string-match kernel == plain version on {len(edge) + 1} cases "
+        "(P = 1, 3, 12, 4096, P > N, matches across tiles)")
+    out["string_match"] = {"max_abs_err": 0.0, "shapes": [timed_row(
+        timer, "string match, 500 MiB corpus, P=12",
+        lambda: sm.string_match(corpus_t, pat_t),
+        lambda: string_match_plain(corpus_t, pat_t), 2 * n + 12, n, reps=5,
+        text_bytes=n, pattern_len=12)]}
+
+    # Flat search: Fig. 6 and dedup shapes, int8 and packed8 planes.
+    rows = []
+    for name, (q, r, c) in [("Fig. 6, one key x one set", FIG6),
+                            ("dedup, 4096 fingerprints x 65536 columns",
+                             DEDUP),
+                            ("ragged", (130, 33, 1000))]:
+        keys = rng.integers(0, 2, (q, r)).astype(np.int8)
+        data = rng.integers(0, 2, (r, c)).astype(np.int8)
+        masks = np.ones((q, r), np.int8)
+        masks[1::7] = 0                          # all-masked rows
+        masks[2::7, : r // 2] = 0                # partial masks
+        data[:, c // 3] = keys[0]
+        k, m, d = (torch.from_numpy(x).cuda() for x in (keys, masks, data))
+        for packed in (False, True):
+            dd = xam.pack_rows(d) if packed else d
+            got = xam.xam_search_device(k, dd, m)
+            assert_equal(torch, got, xam_search_plain(k, dd, m),
+                         f"flat search {name} packed={packed}")
+            if int(got[0, c // 3]) != 1:
+                raise AssertionError("a planted flat-search hit was missed")
+            if name == "ragged":
+                continue
+            n_bytes = 2 * q * r + dd.numel() + q * c
+            rows.append(timed_row(
+                timer, f"flat search {name} "
+                f"({'packed8' if packed else 'int8'})",
+                lambda: xam.xam_search_device(k, dd, m),
+                lambda: xam_search_plain(k, dd, m), n_bytes, q * r * c,
+                reps=5 if q * c > 1 << 20 else 20, queries=q, key_bits=r,
+                columns=c, plane_format="packed8" if packed else "int8"))
+    log("flat-search kernel == plain version on 6 cases (int8/packed8, "
+        "all-masked and partial masks, ragged R and C)")
+    out["xam_search"] = {"max_abs_err": 0.0, "shapes": rows}
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the hash table path.
+# ---------------------------------------------------------------------------
+
+FILL_LOG2 = 17          # the paper's smallest table (§10.4: 2^17..2^25)
+FILL_WINDOW = 32
+FILL_DENSITY = 0.7
+FILL_BUDGET_S = 180.0   # past this, the point is cut to 2^16 slots
+YCSB_OPS = 8192
+
+
+def backends_agree(np, torch) -> dict:
+    """(a) The host and device backends, on the card, through one 2,000-op
+    insert/delete/lookup schedule with wear tracking: bit-identical."""
+    from repro_torch.apps.hashtable import HopscotchTable
+    from repro_torch.core import wear
+
+    wc = wear.WearConfig(n_supersets=8, t_mww_cycles=64,
+                         blocks_per_superset=4)
+    # H=4 so that the schedule's inserts run hop chains on the card.
+    host, dev = (HopscotchTable(12, window=4, wear_cfg=wc, backend=b)
+                 for b in ("host", "device"))
+    rng = np.random.default_rng(0)
+    universe = np.unique(rng.integers(1, 1 << 40, 3100,
+                                      dtype=np.uint64))[:3000]
+    live: list[int] = []
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        op = rng.random()
+        if op < 0.75 or not live:
+            k, v = int(universe[rng.integers(0, 3000)]), int(
+                rng.integers(1, 1 << 63))
+            if host.insert(k, v) != dev.insert(k, v):
+                raise AssertionError("insert results differ")
+            live.append(k)
+        elif op < 0.85:
+            k = live.pop(int(rng.integers(0, len(live))))
+            if host.delete(k) != dev.delete(k):
+                raise AssertionError("delete results differ")
+        else:
+            q = rng.choice(universe, 64)
+            (vh, hh), (vd, hd) = host.lookup_monarch(q), dev.lookup_monarch(q)
+            if not (np.array_equal(vh, vd) and np.array_equal(hh, hd)):
+                raise AssertionError("lookups differ")
+    dev._sync_host()
+    same = (np.array_equal(host.keys, dev.keys)
+            and np.array_equal(host.vals, dev.vals)
+            and dataclasses.astuple(host.stats) == dataclasses.astuple(
+                dev.stats)
+            and host.wear_report() == dev.wear_report())
+    if not same or not dev._pk_lo.is_cuda:
+        raise AssertionError("host and device backends diverged on the card")
+    if host.stats.swaps == 0:
+        raise AssertionError("the schedule ran no hop chain")
+    seconds = time.perf_counter() - t0
+    log(f"hash table backends bit-identical after 2000 ops on the card "
+        f"({seconds:.1f} s): stats {dataclasses.asdict(host.stats)}, wear "
+        f"{host.wear_report()}")
+    return {"seconds": seconds, "stats": dataclasses.asdict(host.stats),
+            "wear": host.wear_report()}
+
+
+def hashtable_point(np, torch, log2_size: int) -> dict:
+    """(b) One Fig. 12-14 point (benchmarks/fig12_14_hashing.py run_point's
+    sizes): fill to density 0.7 in random order, then 8,192 YCSB ops
+    (zipf 1.2, 95% reads), the reads in one lookup_monarch batch and the
+    writes as inserts of fresh keys.  Returns the times and the launch
+    counts of the path, read just after it."""
+    import collections
+    from repro_torch.apps.hashtable import HopscotchTable
+    from repro_torch.data.pipeline import murmur3_np
+
+    table = HopscotchTable(log2_size, window=FILL_WINDOW, backend="device")
+    calls = collections.Counter()
+    inner = table._lookup_window
+
+    def counted(keys):
+        calls["lookup_window"] += 1
+        return inner(keys)
+    table._lookup_window = counted
+
+    n_fill = int(table.n * FILL_DENSITY)
+    rng = np.random.default_rng(0)
+    ids = np.arange(1, n_fill + 1, dtype=np.uint32)
+    fill_keys = (murmur3_np(ids).astype(np.uint64) << np.uint64(13)) | \
+        ids.astype(np.uint64)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in rng.permutation(fill_keys):
+        table.insert(int(k), int(k) ^ 0xABCD)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    ranks = rng.zipf(1.2, YCSB_OPS) % n_fill
+    is_read = rng.random(YCSB_OPS) < 0.95
+    r_keys = fill_keys[ranks][is_read]
+    t0 = time.perf_counter()
+    vals, hits = table.lookup_monarch(r_keys)
+    torch.cuda.synchronize()
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    w_ids = rng.integers(n_fill + 1, n_fill * 2, int((~is_read).sum())
+                         ).astype(np.uint64)
+    w_keys = (murmur3_np(w_ids.astype(np.uint32)).astype(np.uint64)
+              << np.uint64(13)) | w_ids
+    t0 = time.perf_counter()
+    for k in w_keys:
+        table.insert(int(k), 1)
+    torch.cuda.synchronize()
+    write_ms = (time.perf_counter() - t0) * 1e3 / max(len(w_keys), 1)
+    all_vals, all_hits = table.lookup_monarch(fill_keys)
+    counts = read_counts()
+    if not (hits.all() and np.array_equal(vals, r_keys ^ np.uint64(0xABCD))):
+        raise AssertionError("a YCSB read missed or returned a wrong value")
+    if not (all_hits.all()
+            and np.array_equal(all_vals, fill_keys ^ np.uint64(0xABCD))):
+        raise AssertionError("a filled key was lost or its value changed")
+    if counts["hopscotch_lookup"] != calls["lookup_window"] or \
+            counts["hopscotch_lookup"] == 0:
+        raise AssertionError(f"{counts['hopscotch_lookup']} lookup launches "
+                             f"for {calls['lookup_window']} window lookups")
+    # The kernel's share of one lookup batch: its device time at this
+    # batch's shape against the host-clock batch time.
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ops import as_i32_bits
+    qp = 1 << max(3, (len(r_keys) - 1).bit_length())
+    qv = torch.zeros((3, qp), dtype=torch.int32, device="cuda")
+    qv[0, :len(r_keys)] = torch.from_numpy(table.home(r_keys).astype(
+        np.int32)).cuda()
+    qv[1, :len(r_keys)] = torch.from_numpy(as_i32_bits(
+        r_keys & np.uint64(0xFFFFFFFF))).cuda()
+    qv[2, :len(r_keys)] = torch.from_numpy(as_i32_bits(
+        r_keys >> np.uint64(32))).cuda()
+    timer = CudaTimer(torch)
+    kern_ms = timer.graph_ms(lambda: hop.hopscotch_lookup_device(
+        table._pk_lo, table._pk_hi, qv[0], qv[1], qv[2],
+        window=FILL_WINDOW))
+    res = {"log2_size": log2_size, "window": FILL_WINDOW,
+           "inserts": int(n_fill), "fill_s": fill_s,
+           "fill_ms_per_insert": fill_s * 1e3 / n_fill,
+           "reads": int(len(r_keys)), "lookup_batch_ms": lookup_ms,
+           "lookup_kernel_ms": kern_ms,
+           "kernel_share": kern_ms / lookup_ms,
+           "writes": int(len(w_keys)), "write_ms_per_insert": write_ms,
+           "load": table.load, "stats": dataclasses.asdict(table.stats),
+           "launches": counts}
+    log(f"hash table 2^{log2_size} slots, H={FILL_WINDOW}: filled "
+        f"{n_fill} keys in {fill_s:.1f} s ({res['fill_ms_per_insert']:.4f} "
+        f"ms per insert); {len(r_keys)} YCSB reads in one batch "
+        f"{lookup_ms:.4f} ms (kernel {kern_ms:.6f} ms, share "
+        f"{res['kernel_share']:.4f}); {len(w_keys)} writes "
+        f"{write_ms:.4f} ms each; every key found; launches {counts} == "
+        f"{calls['lookup_window']} window lookups")
+    return res
+
+
+def hashtable_phase(np, torch) -> dict:
+    t0 = time.perf_counter()
+    agree = backends_agree(np, torch)
+    point = hashtable_point(np, torch, FILL_LOG2)
+    if point["fill_s"] > FILL_BUDGET_S:
+        log(f"fill of 2^{FILL_LOG2} slots took {point['fill_s']:.1f} s > "
+            f"{FILL_BUDGET_S} s: the point is cut to 2^16 slots")
+        point = hashtable_point(np, torch, 16)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    return {"backends": agree, "point": point}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: string match and the flat-CAM API.
+# ---------------------------------------------------------------------------
+
+def stringmatch_phase(np, torch, corpus_t) -> dict:
+    """32 patterns of 12 bytes at seeded offsets of the 500 MiB corpus,
+    each through ``stringmatch.find`` (one launch) and held to the plain
+    version's count on the card."""
+    from repro_torch.apps import stringmatch
+    from repro_torch.kernels.string_match.ref import string_match_plain
+
+    offs = np.random.default_rng(6).integers(0, corpus_t.shape[0] - 12, 32)
+    pats = [bytes(corpus_t[o:o + 12].cpu().numpy()) for o in offs]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports = [stringmatch.find(corpus_t, p) for p in pats]
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    for p, rep in zip(pats, reports):
+        pt = torch.frombuffer(bytearray(p), dtype=torch.uint8).cuda()
+        want = int(string_match_plain(corpus_t, pt).sum())
+        if rep.n_matches != want or rep.n_matches < 1:
+            raise AssertionError(f"find({p!r}): {rep.n_matches} matches, "
+                                 f"plain version {want}")
+    if counts["string_match"] != len(pats):
+        raise AssertionError(f"{counts['string_match']} string-match "
+                             f"launches for {len(pats)} finds")
+    log(f"stringmatch.find: 32 patterns of 12 bytes over 500 MiB in "
+        f"{seconds:.3f} s ({seconds * 1e3 / 32:.4f} ms per find), matches "
+        f"{[r.n_matches for r in reports[:8]]}..., all == plain version; "
+        f"launches {counts['string_match']}")
+    return {"seconds": seconds, "ms_per_find": seconds * 1e3 / 32,
+            "matches": [r.n_matches for r in reports],
+            "launches": counts}
+
+
+def monarch_api_phase(np, torch) -> dict:
+    """``MonarchDevice()`` at its defaults filled through cam_write and
+    ram_write, 256 lookups of stored keys, 64 of absent keys and a masked
+    partial search, then ``dedup_mask`` at the dedup shape."""
+    from repro_torch.core.api import MonarchDevice
+    from repro_torch.data.pipeline import dedup_mask
+    from repro_torch.kernels.xam_search import ops as xam
+
+    rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    zero_counts()
+    dev = MonarchDevice()
+    n = dev.n_sets * dev.set_cols
+    keys = np.unique(rng.integers(0, 2 ** 64, n + 64, dtype=np.uint64))
+    keys = rng.permutation(keys)[:n]
+    vals = rng.integers(0, 2 ** 63, n, dtype=np.uint64)
+    k_alloc, d_alloc = dev.flat_cam_malloc(n), dev.flat_ram_malloc(n)
+    for i in range(n):
+        dev.cam_write(k_alloc, i, int(keys[i]))
+        dev.ram_write(d_alloc, i, int(vals[i]))
+    fill_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stored = set(keys.tolist())
+    picks = rng.integers(0, n, 256)
+    for i in picks:
+        if dev.kv_lookup(k_alloc, d_alloc, int(keys[i])) != int(vals[i]):
+            raise AssertionError(f"kv_lookup of stored key {i} is wrong")
+    absent = [k for k in rng.integers(0, 2 ** 64, 80, dtype=np.uint64)
+              .tolist() if k not in stored][:64]
+    for k in absent:
+        if dev.kv_lookup(k_alloc, d_alloc, k) is not None:
+            raise AssertionError("an absent key was found")
+    mask = 0xFFFF_FFFF
+    probe = int(keys[picks[0]]) ^ (1 << 50)
+    first = int(np.argmax((keys & np.uint64(mask)) == np.uint64(probe & mask)))
+    if dev.kv_lookup(k_alloc, d_alloc, probe, mask=mask) != int(vals[first]):
+        raise AssertionError("masked partial search returned a wrong value")
+    lookup_s = time.perf_counter() - t1
+    searches = sum(c.startswith("S set=") for c in dev.command_log)
+    flat = read_counts()["xam_search"]
+    if flat != searches or flat == 0:
+        raise AssertionError(f"{flat} flat launches for {searches} "
+                             "S commands")
+    if not dev.cam_bits.is_cuda:
+        raise AssertionError("the CAM planes are off the card")
+    # dedup_mask at the dedup shape: a third of the fingerprints stored.
+    q, r, c = DEDUP
+    fps = rng.integers(0, 2 ** 32, q, dtype=np.uint32)
+    words = rng.integers(0, 2 ** 32, c, dtype=np.uint32)
+    words[rng.choice(c, q // 3, replace=False)] = fps[: q // 3]
+    bits = ((words[None, :] >> np.arange(32, dtype=np.uint32)[:, None]) & 1
+            ).astype(np.int8)
+    t2 = time.perf_counter()
+    got = dedup_mask(fps, torch.from_numpy(bits).cuda())
+    dedup_ms = (time.perf_counter() - t2) * 1e3
+    if not np.array_equal(got, np.isin(fps, words)):
+        raise AssertionError("dedup_mask disagrees with np.isin")
+    counts = read_counts()
+    if counts["xam_search"] != searches + 1:
+        raise AssertionError("dedup_mask did not run one flat launch")
+    log(f"MonarchDevice {dev.n_sets}x{dev.key_bits}x{dev.set_cols}: filled "
+        f"{n} keys in {fill_s:.1f} s; 256 stored + {len(absent)} absent "
+        f"lookups + 1 masked in {lookup_s:.2f} s, {searches} S commands == "
+        f"{flat} flat launches; dedup_mask {q}x{r}x{c} {dedup_ms:.3f} ms "
+        f"({int(got.sum())} duplicates)")
+    return {"fill_s": fill_s, "lookup_s": lookup_s, "searches": searches,
+            "dedup_ms": dedup_ms, "launches": counts}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -467,7 +975,7 @@ def main() -> int:
         log(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.xam_search import kernel
+    from repro_torch.apps.stringmatch import make_corpus
 
     # float32 matmuls stay full precision (the attention and unembedding
     # contractions run in float32); TF32 would keep ~3 digits.  bf16 GEMMs
@@ -479,24 +987,42 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
-    lib = kernel.library()
-    log(f"kernel library {lib.path.relative_to(ROOT)} built in "
-        f"{lib.build_seconds:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    builds = build_all()
 
     max_err = check_search_kernel(np, torch)
     timer = CudaTimer(torch)
     timing = time_search_kernel(np, torch, timer)
     shallow = shallow_resume_check(np, torch)
+    zero_counts()
     served = serve_phase(np, torch)
+    serve_counts = read_counts()
 
+    t0 = time.perf_counter()
+    corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
+    log(f"500 MiB corpus made and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    slice2 = kernels_phase(np, torch, timer, corpus_t)
+    table = hashtable_phase(np, torch)
+    t0 = time.perf_counter()
+    strings = stringmatch_phase(np, torch, corpus_t)
+    api = monarch_api_phase(np, torch)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    path_launches = {
+        "xam_search_multiset": serve_counts["xam_search_multiset"],
+        "hopscotch_lookup": table["point"]["launches"]["hopscotch_lookup"],
+        "string_match": strings["launches"]["string_match"],
+        "xam_search": api["launches"]["xam_search"],
+    }
+    for name, n in path_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
     main_row = timing[0]             # the shape the main path's lookups have
+    src = "src/repro_torch/kernels/"
     kernels = [{
         "name": "xam_search_multiset",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/xam_search/csrc/xam_multiset.cu",
+        "source": src + "xam_search/csrc/xam_multiset.cu",
         "replaces": "src/repro/kernels/xam_search/kernel.py:225",
         "launches": served["launches"],
         "launches_per_request_batch": served["launches"] / served["batches"],
@@ -508,10 +1034,30 @@ def main() -> int:
         "library_ms": None,
         "shapes": timing,
     }]
-    print(json.dumps({"kernels": kernels, "serve": served["times"],
+    # The shape each path runs: the 2^17-slot table at H=32, the 500 MiB
+    # corpus, the Fig. 6 search.
+    for name, source, replaces, row in [
+            ("xam_search", "xam_search/csrc/xam_search.cu",
+             "src/repro/kernels/xam_search/kernel.py:118", 0),
+            ("hopscotch_lookup", "hopscotch/csrc/hopscotch_lookup.cu",
+             "src/repro/kernels/hopscotch/kernel.py:76", 1),
+            ("string_match", "string_match/csrc/string_match.cu",
+             "src/repro/kernels/string_match/kernel.py:38", 0)]:
+        shapes = slice2[name]["shapes"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": replaces, "launches": path_launches[name],
+            "max_abs_err": slice2[name]["max_abs_err"],
+            "ms": shapes[row]["ms"], "plain_ms": shapes[row]["plain_ms"],
+            "bound_ms": shapes[row]["bound_ms"],
+            "bound_by": shapes[row]["bound_by"], "library_ms": None,
+            "shapes": shapes})
+    print(json.dumps({"kernels": kernels, "builds": builds,
+                      "serve": served["times"],
                       "resume_check": served["resume_check"],
-                      "resume_check_shallow": shallow, "card": smi}),
-          flush=True)
+                      "resume_check_shallow": shallow,
+                      "hashtable": table, "stringmatch": strings,
+                      "monarch_api": api, "card": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import geometry
+from repro_torch.core.timing import CPU_HZ, t_mww_seconds
 from repro_torch.device import resolve_device
 
 #: Cycle resolution of the ``clock="wall"`` domain: one cycle per
@@ -54,6 +55,21 @@ class WearConfig:
     def window_write_budget(self) -> int:
         # M writes per BLOCK per window, tracked at superset granularity.
         return self.blocks_per_superset * self.m_writes
+
+
+def make_config(n_supersets: int, m_writes: int = 3,
+                t_life_years: float = 10.0, endurance: float = 1e8,
+                clock: str = "ops", **kw) -> WearConfig:
+    """WearConfig with the t_MWW window derived from a lifetime target:
+    ``t_MWW_seconds * CPU_HZ`` cycles for ``clock="ops"`` (the CPU-cycle
+    proxy), ``t_MWW_seconds * WALL_HZ`` for ``clock="wall"``."""
+    t_mww_s = t_mww_seconds(m_writes, t_life_years * 365.25 * 24 * 3600,
+                            endurance)
+    hz = CPU_HZ if clock == "ops" else WALL_HZ
+    return WearConfig(
+        n_supersets=n_supersets, m_writes=m_writes,
+        t_mww_cycles=int(t_mww_s * hz), clock=clock, **kw,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,10 +134,9 @@ def msb_index(x) -> torch.Tensor:
     uint32 bit pattern, so their MSB is 31) — the reference's
     ``31 - clz(uint32(x))`` without a clz primitive."""
     u = torch.as_tensor(x).to(torch.int64) & 0xFFFFFFFF
-    out = torch.full_like(u, -1)
-    for b in range(32):
-        out = torch.where(((u >> b) & 1) == 1, b, out)
-    return out.to(_I32)
+    # float64 holds every uint32 exactly: x = m * 2**e with m in [0.5, 1),
+    # so the MSB is e - 1 (and frexp(0) gives e = 0, hence -1).
+    return (torch.frexp(u.to(torch.float64)).exponent - 1).to(_I32)
 
 
 def wr_signal(state: WearState, cfg) -> torch.Tensor:
@@ -232,6 +247,35 @@ def record_write(state: WearState, cfg, superset, makes_dirty, cycle):
         total_flushed=(mid.total_flushed + flushed).to(_I32),
     )
     return new_state, rot, flushed
+
+
+def record_writes(state: WearState, cfg, supersets, makes_dirty, cycles,
+                  active=None):
+    """Batched :func:`record_write`: apply a trace of writes in order.
+
+    ``supersets``/``cycles`` (B,) int32, ``makes_dirty`` (B,) bool,
+    ``active`` (B,) bool masking padding lanes (None = all active).
+    Returns ``(state, rotated (B,) bool, flushed (B,) int32)``, equal to
+    the reference's ``lax.scan`` step for step.  An inactive lane changes
+    neither the state nor its outputs, so the loop skips it (``active`` is
+    read on the host) instead of computing and discarding it."""
+    dev = state.window_start.device
+    s = torch.as_tensor(supersets, device=dev).to(_I32)
+    d = torch.as_tensor(makes_dirty, device=dev).to(torch.bool)
+    c = torch.as_tensor(cycles, device=dev).to(_I32)
+    n = s.shape[0]
+    act = ([True] * n if active is None else
+           torch.as_tensor(active).to(torch.bool).cpu().tolist())
+    no_rot = torch.zeros((), dtype=torch.bool, device=dev)
+    no_fl = torch.zeros((), dtype=_I32, device=dev)
+    rots, fls = [no_rot] * n, [no_fl] * n
+    for i in range(n):
+        if act[i]:
+            state, rots[i], fls[i] = record_write(state, cfg, s[i], d[i],
+                                                  c[i])
+    if n == 0:
+        return state, no_rot.new_zeros(0), no_fl.new_zeros(0)
+    return state, torch.stack(rots), torch.stack(fls)
 
 
 def _scatter_rows(field: torch.Tensor, idx: torch.Tensor,
@@ -345,6 +389,16 @@ def concat_states(states: list[WearState]) -> WearState:
 #: difference-based, so shifting the clock and every stored stamp by the
 #: same delta changes no decision.
 CLOCK_REBASE_AT = 1 << 30
+
+
+def maybe_rebase(state: WearState, op_counter: int):
+    """Fold ``op_counter`` (and the state's stamps, via
+    :func:`rebase_clock`) once it reaches CLOCK_REBASE_AT.  Returns
+    ``(state, op_counter)``."""
+    if op_counter >= CLOCK_REBASE_AT:
+        state = rebase_clock(state, CLOCK_REBASE_AT)
+        op_counter -= CLOCK_REBASE_AT
+    return state, op_counter
 
 
 def rebase_clock(state: WearState, delta) -> WearState:

@@ -1,5 +1,5 @@
-"""Chunk fingerprinting for the prefix index (port of the hashing half of
-``repro/data/pipeline.py``).
+"""Chunk fingerprinting, YCSB key streams and CAM dedup (port of the
+hashing, YCSB and dedup parts of ``repro/data/pipeline.py``).
 
 Murmur3's 32-bit finalizer is the hash core: token chunks fold through it
 into uint32 fingerprints, which the serving index stores in its CAM
@@ -8,8 +8,12 @@ reference.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from repro_torch.kernels.xam_search import ops as xam_ops
 
 _MASK32 = 0xFFFFFFFF
 
@@ -61,3 +65,47 @@ def prefix_fingerprint_blocks(tokens: np.ndarray,
         acc = murmur3_np(acc ^ blocks[:, i])
         out[:, i] = acc
     return out
+
+
+# ---------------------------------------------------------------------------
+# YCSB-style key-value workloads (paper §9.2.2: YCSB-B zipfian 95/5).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class YcsbConfig:
+    n_keys: int
+    n_ops: int
+    read_fraction: float = 0.95   # YCSB-B
+    zipf_a: float = 1.2
+    seed: int = 0
+
+
+def ycsb_ops(cfg: YcsbConfig):
+    """Returns (keys uint64, is_read bool) operation stream over a keyspace
+    of n_keys existing keys; writes may insert new keys."""
+    rng = np.random.default_rng(cfg.seed)
+    ranks = rng.zipf(cfg.zipf_a, cfg.n_ops).astype(np.uint64)
+    keys = murmur3_np((ranks % np.uint64(cfg.n_keys)).astype(np.uint32)).astype(np.uint64)
+    keys = (keys << np.uint64(16)) | (ranks % np.uint64(cfg.n_keys))
+    is_read = rng.random(cfg.n_ops) < cfg.read_fraction
+    # writes beyond the keyspace are inserts of fresh keys
+    fresh = rng.integers(cfg.n_keys, cfg.n_keys * 2, cfg.n_ops).astype(np.uint64)
+    keys = np.where(is_read, keys, (murmur3_np(fresh.astype(np.uint32)).astype(np.uint64) << np.uint64(16)) | fresh)
+    # 0 is the hash-table EMPTY sentinel (murmur3(0) == 0, so rank
+    # multiples of n_keys would produce it)
+    keys = np.where(keys == 0, np.uint64(1), keys)
+    return keys, is_read
+
+
+# ---------------------------------------------------------------------------
+# CAM dedup over token blocks.
+# ---------------------------------------------------------------------------
+
+def dedup_mask(fps: np.ndarray, stored_bits: torch.Tensor) -> np.ndarray:
+    """True where a fingerprint already exists in the CAM index plane
+    (stored_bits: (32, C) int8 on the device).  One flat XAM search per
+    fingerprint batch."""
+    flat = torch.from_numpy(np.asarray(fps, np.uint32).reshape(-1).astype(
+        np.int64)).to(stored_bits.device)
+    hits = xam_ops.xam_search(xam_ops.words_to_bits(flat, 32), stored_bits)
+    return (hits == 1).any(dim=1).cpu().numpy().reshape(np.shape(fps))

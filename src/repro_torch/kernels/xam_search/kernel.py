@@ -1,87 +1,54 @@
-"""Build and bind the Hopper kernel for the fused multi-set XAM search.
+"""Bind the Hopper kernels of the XAM search.
 
-``csrc/xam_multiset.cu`` exports a plain C launcher; it is compiled with
-``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` of the checkout on
-first use (named by a hash of the source, so an edited source never
-loads a stale library) and loaded with ``ctypes``.  Nothing is built
-when this module is imported.
+``csrc/xam_multiset.cu`` (the fused multi-set first-match search) and
+``csrc/xam_search.cu`` (the flat masked search, a (Q, C) bitmap) each
+export a plain C launcher; ``kernels/build.py`` compiles them with
+``nvcc`` for ``sm_90a`` at first use and loads them with ``ctypes``.
+Nothing is built when this module is imported.
 
-:func:`xam_search_multiset_cuda` takes CUDA tensors only; the
-device-dispatching wrapper that the serving path calls is
-``ops.xam_search_multiset_device``.
+The functions here take CUDA tensors only; the device-dispatching
+wrappers the callers use are ``ops.xam_search_multiset_device`` and
+``ops.xam_search``.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
-_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "xam_multiset.cu"
-#: Build output: ``build/repro_torch/`` at the root of the checkout.
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelLibrary
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: Largest dynamic shared memory one block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
 MAX_KEY_BITS = 512
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: pathlib.Path
-    build_seconds: float     # 0.0 when an up-to-date build was reused
-    build_log: str           # nvcc/ptxas output (registers, shared memory)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): cannot build "
-                       f"{_SRC.name}")
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> KernelLibrary:
-    """Compile (once per source version) and load the kernel library."""
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libxam_multiset_{tag}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{_SRC.name}:\n{log}")
-        os.replace(tmp, so)               # atomic against a parallel build
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.xam_multiset_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-    lib.xam_multiset_launch.restype = ci
-    lib.xam_multiset_error_string.argtypes = [ci]
-    lib.xam_multiset_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, so, seconds, log)
+    """The multi-set search library (built once per source version)."""
+    kl = build.compile_and_load(_CSRC / "xam_multiset.cu", "xam_multiset")
+    kl.lib.xam_multiset_launch.argtypes = [_VP] * 7 + [_CI] * 7 + [_VP]
+    kl.lib.xam_multiset_launch.restype = _CI
+    return kl
+
+
+@functools.lru_cache(maxsize=None)
+def flat_library() -> KernelLibrary:
+    """The flat search library (built once per source version)."""
+    kl = build.compile_and_load(_CSRC / "xam_search.cu", "xam_search")
+    kl.lib.xam_search_launch.argtypes = [_VP] * 4 + [_CI] * 5 + [_VP]
+    kl.lib.xam_search_launch.restype = _CI
+    return kl
 
 
 def smem_bytes(r: int, c: int) -> int:
-    """Dynamic shared memory of one live block (mirrors the C helper)."""
+    """Dynamic shared memory of one live multi-set block (mirrors the C
+    helper)."""
     return -(-r // 32) * c * 4 + -(-c // 4) * 4
 
 
@@ -90,20 +57,16 @@ def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
                              block_sets: torch.Tensor,
                              live_blocks: torch.Tensor, *,
                              block_q: int) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation).
+    """Launch the multi-set kernel on the current stream (no
+    synchronisation).
 
     Operands as ``ops.xam_search_multiset_device`` documents, already
     validated there except for what only the card imposes; all must be
     contiguous CUDA tensors on one device.  Returns the (Q,) int32 result,
     allocated here with ``torch.empty``.  Raises ``RuntimeError`` if the
     launch is refused."""
-    ops_ = (keys, masks, planes, valid, block_sets, live_blocks)
-    dev = planes.device
-    if dev.type != "cuda" or any(t.device != dev for t in ops_):
-        raise ValueError("xam_search_multiset_cuda needs every operand on "
-                         f"one CUDA device; got {[str(t.device) for t in ops_]}")
-    if not all(t.is_contiguous() for t in ops_):
-        raise ValueError("xam_search_multiset_cuda needs contiguous operands")
+    build.check_cuda_operands("xam_search_multiset_cuda", planes, keys,
+                              masks, valid, block_sets, live_blocks)
     q, r = keys.shape
     n_sets, rp, c = planes.shape
     if r > MAX_KEY_BITS:
@@ -113,15 +76,32 @@ def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
         raise ValueError(f"a {r}x{c} plane tile needs {smem} bytes of shared "
                          f"memory; the card allows {MAX_SMEM_BYTES}")
     kl = library()
-    out = torch.empty(q, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = kl.lib.xam_multiset_launch(
+    out = torch.empty(q, dtype=torch.int32, device=planes.device)
+    kl.check(kl.lib.xam_multiset_launch(
         keys.data_ptr(), masks.data_ptr(), planes.data_ptr(),
         valid.data_ptr(), block_sets.data_ptr(), live_blocks.data_ptr(),
         out.data_ptr(), q // block_q, n_sets, block_q, r, rp, c,
-        int(planes.dtype == torch.uint8), stream)
-    if err != 0:
-        msg = kl.lib.xam_multiset_error_string(err).decode()
-        raise RuntimeError(f"xam_multiset launch failed: CUDA error {err} "
-                           f"({msg})")
+        int(planes.dtype == torch.uint8), build.stream_of(planes)))
+    return out
+
+
+def xam_search_cuda(keys: torch.Tensor, data: torch.Tensor,
+                    masks: torch.Tensor) -> torch.Tensor:
+    """Launch the flat search kernel on the current stream (no
+    synchronisation).
+
+    keys/masks (Q, R) int8 {0,1}; data (R, C) int8 or (Rp, C) uint8
+    packed words with ``Rp * 8 >= R``; all contiguous CUDA tensors on one
+    device.  Returns the (Q, C) int8 bitmap, allocated here.  An all-zero
+    mask row matches every column."""
+    build.check_cuda_operands("xam_search_cuda", data, keys, masks)
+    q, r = keys.shape
+    rp, c = data.shape
+    if r > MAX_KEY_BITS:
+        raise ValueError(f"key rows {r} exceed the kernel's {MAX_KEY_BITS}")
+    kl = flat_library()
+    out = torch.empty((q, c), dtype=torch.int8, device=data.device)
+    kl.check(kl.lib.xam_search_launch(
+        keys.data_ptr(), masks.data_ptr(), data.data_ptr(), out.data_ptr(),
+        q, r, rp, c, int(data.dtype == torch.uint8), build.stream_of(data)))
     return out

@@ -1,5 +1,5 @@
-"""Public wrappers for the fused multi-set XAM search (port of the
-single-partition half of ``repro/kernels/xam_search/ops.py``).
+"""Public wrappers for the XAM search kernels (port of the flat search
+and the single-partition half of ``repro/kernels/xam_search/ops.py``).
 
 The host groups a query batch into per-set blocks of ``block_q`` queries
 (:func:`group_queries_by_set`); one launch answers the whole batch.
@@ -7,22 +7,29 @@ The host groups a query batch into per-set blocks of ``block_q`` queries
 for tensors on the CPU it runs the plain PyTorch version
 (``ref.xam_search_multiset_plain``), for CUDA tensors it launches the
 Hopper kernel (``kernel.xam_search_multiset_cuda``) or raises — it never
-falls back from the card to the plain version.
+falls back from the card to the plain version.  :func:`xam_search` (the
+flat search behind ``core/api.py`` and ``dedup_mask``) dispatches the same
+way through :func:`xam_search_device`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import bucket_pow2
+from repro_torch.kernels.common import bucket_pow2, resolve_plane_format
 from repro_torch.kernels.xam_search import kernel
-from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
+from repro_torch.kernels.xam_search.ref import (
+    first_match, xam_search_multiset_plain, xam_search_plain)
 
 #: Fused-search launches since import: :func:`xam_search_multiset_device`
 #: adds one per call, where it launches the kernel (CUDA) or runs its
 #: plain stand-in (CPU).  The serving index makes one call per lookup
 #: batch, so this equals ``KVIndexStats.searches``.
 LAUNCH_COUNT = 0
+
+#: Flat-search launches since import: :func:`xam_search_device` adds one
+#: per call (kernel on CUDA, plain version on the CPU).
+FLAT_LAUNCH_COUNT = 0
 
 #: Admission dispatches since import — ``MonarchKVIndex`` adds one per
 #: ``admit_fps`` batch (the write-path twin of ``LAUNCH_COUNT``).
@@ -255,3 +262,100 @@ def xam_search_multiset(key_bits: np.ndarray, set_ids: np.ndarray,
         put(keys), put(masks), planes, valid, put(block_sets),
         put(live), block_q=block_q, scoring=scoring)
     return out.cpu().numpy()[slot]
+
+
+# ---------------------------------------------------------------------------
+# The flat search (Fig. 6 API, dedup).
+# ---------------------------------------------------------------------------
+
+def pack_rows(bits: torch.Tensor) -> torch.Tensor:
+    """(R, C) {0,1} bits -> (ceil(R/8), C) uint8 words, LSB-first along R,
+    zero rows padding R to a multiple of 8 (the layout of
+    ``common.pack_bits_np(..., axis=0)``), on the bits' device."""
+    r, c = bits.shape
+    rp = -(-r // 8)
+    padded = torch.zeros((rp * 8, c), dtype=torch.int32, device=bits.device)
+    padded[:r] = bits
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    return (padded.reshape(rp, 8, c) << shifts[:, None]).sum(dim=1).to(
+        torch.uint8)
+
+
+def xam_search_device(keys: torch.Tensor, data: torch.Tensor,
+                      masks: torch.Tensor) -> torch.Tensor:
+    """One flat search over tensors on one device: keys/masks (Q, R) int8,
+    data (R, C) int8 or (Rp, C) uint8 packed words with ``Rp * 8 >= R``.
+    Returns the (Q, C) int8 bitmap; an all-zero mask row matches every
+    column.  CPU tensors run the plain version, CUDA tensors the kernel
+    (on the current stream, not synchronised)."""
+    global FLAT_LAUNCH_COUNT
+    if keys.dtype != torch.int8 or masks.dtype != torch.int8:
+        raise TypeError(f"keys/masks must be int8, got {keys.dtype}/"
+                        f"{masks.dtype}")
+    if data.dtype not in (torch.int8, torch.uint8) or data.dim() != 2:
+        raise TypeError("data must be a 2-D int8 (unpacked) or uint8 "
+                        f"(packed8) plane, got {data.dtype} "
+                        f"{tuple(data.shape)}")
+    q, r = keys.shape
+    rows = data.shape[0] * (8 if data.dtype == torch.uint8 else 1)
+    if masks.shape != keys.shape or (
+            rows != r if data.dtype == torch.int8 else rows < r):
+        raise ValueError(f"shape mismatch: keys {tuple(keys.shape)}, masks "
+                         f"{tuple(masks.shape)}, data {tuple(data.shape)} "
+                         f"({data.dtype})")
+    if data.device.type == "cpu":
+        FLAT_LAUNCH_COUNT += 1
+        return xam_search_plain(keys, data, masks)
+    if data.device.type == "cuda":
+        out = kernel.xam_search_cuda(keys.contiguous(), data.contiguous(),
+                                     masks.contiguous())
+        FLAT_LAUNCH_COUNT += 1
+        return out
+    raise ValueError(f"unsupported device {data.device}")
+
+
+def xam_search(keys, data: torch.Tensor, masks=None, *,
+               scoring: str = "int8",
+               plane_format: str | None = None) -> torch.Tensor:
+    """Masked CAM search: (Q, R) keys x (R, C) stored bits -> (Q, C) int8
+    matches, on ``data``'s device (keys and masks, tensors or arrays, are
+    moved there).  ``masks=None`` selects every bit.
+
+    ``plane_format`` (None = the ``REPRO_PLANE_FORMAT`` env knob, default
+    ``"int8"``): ``"packed8"`` packs ``data`` 8 rows per uint8 word (R
+    padded to a multiple of 8 with zero rows, which the keys' mask never
+    selects) before the search — bit-identical results.  ``scoring``
+    ("int8"/"f32") is validated for parity with the reference, whose two
+    scorings are bit-identical; the exact compare serves both."""
+    _check_scoring(scoring)
+    plane_format = resolve_plane_format(plane_format)
+    dev = data.device
+    keys = torch.as_tensor(keys, device=dev).to(torch.int8)
+    masks = (torch.ones_like(keys) if masks is None
+             else torch.as_tensor(masks, device=dev).to(torch.int8))
+    data = data.to(torch.int8)
+    if plane_format == "packed8":
+        data = pack_rows(data)
+    return xam_search_device(keys, data, masks)
+
+
+def xam_match_index(keys, data: torch.Tensor, masks=None,
+                    **kw) -> torch.Tensor:
+    """First matching column per query; -1 = NULL match register."""
+    return first_match(xam_search(keys, data, masks, **kw))
+
+
+def words_to_bits(words: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
+    """(...,) uint32 values (held in int64) -> (..., n_bits) int8 bit
+    planes, LSB first."""
+    if n_bits > 32:
+        raise ValueError("n_bits exceeds word width")
+    shifts = torch.arange(n_bits, dtype=torch.int64, device=words.device)
+    return ((words.to(torch.int64)[..., None] >> shifts) & 1).to(torch.int8)
+
+
+def bits_to_words(bits: torch.Tensor) -> torch.Tensor:
+    """(..., n_bits) {0,1} bits -> (...,) int64 words (LSB first)."""
+    shifts = torch.arange(bits.shape[-1], dtype=torch.int64,
+                          device=bits.device)
+    return (bits.to(torch.int64) << shifts).sum(dim=-1)

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused multi-set XAM search.
+"""Plain PyTorch versions of the XAM searches: the fused multi-set search
+and the flat search (``xam_search_plain``, a (Q, C) bitmap).
 
 Semantics (paper §4.2.2): a stored column matches a (key, mask) pair iff
 every *masked-in* key bit equals the stored bit in that row of the column.
@@ -47,3 +48,32 @@ def xam_search_multiset_plain(keys: torch.Tensor, masks: torch.Tensor,
     first = torch.where(m.any(dim=1), m.to(torch.int32).argmax(dim=1), -1)
     row_live = (masks != 0).any(dim=1) & live
     return torch.where(row_live, first, -1).to(torch.int32)
+
+
+def xam_search_plain(keys: torch.Tensor, data: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+    """The flat search: keys/masks (Q, R) int8 {0,1}; data (R, C) int8 or
+    (Rp, C) uint8 packed words with ``Rp * 8 >= R``.  Returns the (Q, C)
+    int8 bitmap ``AND_r (mask == 0 or key == data)`` — the reference's
+    ``xam_search_ref``; an all-zero mask row matches every column.  A
+    loop over the R rows keeps the working set at (Q, C)."""
+    if data.dtype == torch.uint8:
+        data = unpack_rows(data)
+    q, r = keys.shape
+    acc = torch.ones((q, data.shape[1]), dtype=torch.bool,
+                     device=data.device)
+    for row in range(r):
+        acc &= (keys[:, row, None] == data[row]) | (masks[:, row, None] == 0)
+    return acc.to(torch.int8)
+
+
+def first_match(m: torch.Tensor) -> torch.Tensor:
+    """(Q, C) bitmap -> (Q,) int32 first column with a 1, -1 when none."""
+    first = m.to(torch.int32).argmax(dim=1).to(torch.int32)
+    return torch.where((m == 1).any(dim=1), first, -1).to(torch.int32)
+
+
+def xam_match_index_plain(keys: torch.Tensor, data: torch.Tensor,
+                          masks: torch.Tensor) -> torch.Tensor:
+    """First matching column per query, -1 when none (match register)."""
+    return first_match(xam_search_plain(keys, data, masks))

@@ -17,7 +17,7 @@ from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
 
 def _needs_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
 
 
 def _operands(rng, n_sets, r, c, n_q, packed):
@@ -66,3 +66,87 @@ def test_card_lookup_equals_cpu_lookup():
     np.testing.assert_array_equal(gpu.lookup(toks), cpu.lookup(toks))
     assert gpu.bits.is_cuda
     assert torch.equal(gpu.bits.cpu(), cpu.bits)
+
+
+# ---------------------------------------------------------------------------
+# The slice-2 kernels: flat search, hopscotch lookup, string match.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("q,r,c", [(1, 64, 512), (130, 64, 513), (5, 33, 64),
+                                   (70, 512, 300), (3000, 32, 1000)])
+def test_flat_search_kernel_matches_plain(q, r, c, packed):
+    """Ragged Q and C, R not a multiple of 8, all-zero mask rows, planted
+    hits, int8 and packed8 planes."""
+    _needs_card()
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+    rng = np.random.default_rng(q + r + c)
+    keys = rng.integers(0, 2, (q, r)).astype(np.int8)
+    data = rng.integers(0, 2, (r, c)).astype(np.int8)
+    masks = (rng.random((q, r)) < 0.9).astype(np.int8)
+    masks[::5] = 0
+    data[:, c // 2] = keys[1 % q]
+    k, m, d = (torch.from_numpy(x).cuda() for x in (keys, masks, data))
+    if packed:
+        d = ops.pack_rows(d)
+    before = ops.FLAT_LAUNCH_COUNT
+    got = ops.xam_search_device(k, d, m)
+    torch.cuda.synchronize()
+    assert got.is_cuda and ops.FLAT_LAUNCH_COUNT == before + 1
+    assert torch.equal(got, xam_search_plain(k, d, m))
+    assert bool((got[::5] == 1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [4, 8, 32, 33, 128])
+@pytest.mark.parametrize("n_q", [1, 9, 1000])
+def test_hopscotch_kernel_matches_plain(window, n_q):
+    """Dense collisions (first match wins), planted hits, windows that run
+    past the table's end and start below 0 (never matched outside)."""
+    _needs_card()
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
+    rng = np.random.default_rng(window * n_q)
+    n = window * 20 + 3
+    t_lo = rng.integers(0, 4, n).astype(np.int32)
+    t_hi = rng.integers(-2, 1, n).astype(np.int32)
+    homes = rng.integers(-window, n, n_q).astype(np.int32)
+    q_lo = rng.integers(0, 4, n_q).astype(np.int32)
+    q_hi = rng.integers(-2, 1, n_q).astype(np.int32)
+    homes[0], q_lo[0], q_hi[0] = 5, t_lo[7], t_hi[7]     # a planted hit
+    ops_ = [torch.from_numpy(x).cuda() for x in (t_lo, t_hi, homes, q_lo,
+                                                   q_hi)]
+    before = hop.LAUNCH_COUNT
+    got = hop.hopscotch_lookup_device(*ops_, window=window)
+    torch.cuda.synchronize()
+    assert hop.LAUNCH_COUNT == before + 1
+    assert torch.equal(got, hopscotch_lookup_plain(*ops_, window))
+    assert 0 <= int(got[0]) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1, 1), (5000, 1), (4096 * 3 + 7, 3),
+                                 (4096 * 2, 12), (20000, 4096), (10, 11),
+                                 (9000, 0)])
+def test_string_match_kernel_matches_plain(n, p):
+    """P = 1 and P = 4096, matches across tiles, N ragged, P > N."""
+    _needs_card()
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+    rng = np.random.default_rng(n + p)
+    text = rng.integers(97, 99, n).astype(np.uint8)
+    pat = rng.integers(97, 99, p).astype(np.uint8)
+    for start in (4096 - p // 2, n - p):
+        if 0 <= start <= n - p:
+            text[start:start + p] = pat
+    t, pt = torch.from_numpy(text).cuda(), torch.from_numpy(pat).cuda()
+    before = sm.LAUNCH_COUNT
+    got = sm.string_match(t, pt)
+    torch.cuda.synchronize()
+    assert sm.LAUNCH_COUNT == before + 1
+    assert torch.equal(got, string_match_plain(t, pt))
+    if p > n:
+        assert not bool(got.any())
+    elif p > 0:
+        assert got[n - p] == 1
