@@ -28,8 +28,11 @@ code 1) on failure:
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
    queries), the string match (edge cases, then the 500 MiB corpus with
-   P = 12) and the flat XAM search (the Fig. 6 shape and a 4096 x 32 x
-   65,536 dedup shape, int8 and packed8).
+   P = 12, 1 and 4096, and one repeated byte with P = 64) and the flat
+   XAM search (the Fig. 6 shape and a 4096 x 32 x 65,536 dedup shape,
+   int8 and packed8).  The edge matrices of the two redesigned kernels
+   (``flat_edge_cases``, ``string_edge_cases``) run here too, and an
+   empty kernel is timed as the launch floor of the Fig. 6 search.
 5. The hash table: the host and device backends through one 2,000-op
    schedule with wear tracking, bit-identical on the card; then one
    Fig. 12-14 point, ``HopscotchTable(17, window=32, backend="device")``
@@ -37,7 +40,9 @@ code 1) on failure:
    (95% reads in one lookup batch), every key found with its value, and
    lookup launches equal to the window lookups made.
 6. String match and the flat-CAM API: ``stringmatch.find`` of 32 patterns
-   over the 500 MiB corpus, each count equal to the plain version's;
+   over the 500 MiB corpus, each count equal to the plain version's, and
+   one ``find`` broken down into upload, kernel, count and read-back with
+   the peak device memory it adds (at most 2 N bytes);
    ``MonarchDevice()`` at its defaults filled, 256 lookups of stored keys,
    64 of absent keys and a masked search, flat launches equal to its
    ``S set=`` commands; ``dedup_mask`` at the dedup shape.
@@ -118,7 +123,8 @@ class CudaTimer:
             times.append(self._events_ms(fn))
         return statistics.median(times)
 
-    def graph_ms(self, fn, reps: int = 20) -> float:
+    def graph_ms(self, fn, reps: int = 20, flush: bool = True) -> float:
+        """``flush=False`` drops the overwrites: the warm-L2 time."""
         torch = self.torch
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -128,13 +134,16 @@ class CudaTimer:
         both, flush_only = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with torch.cuda.graph(both):
             for _ in range(reps):
-                self.flush.zero_()
+                if flush:
+                    self.flush.zero_()
                 fn()
+        t_both = statistics.median(self._events_ms(both.replay)
+                                   for _ in range(5))
+        if not flush:
+            return t_both / reps
         with torch.cuda.graph(flush_only):
             for _ in range(reps):
                 self.flush.zero_()
-        t_both = statistics.median(self._events_ms(both.replay)
-                                   for _ in range(5))
         t_flush = statistics.median(self._events_ms(flush_only.replay)
                                     for _ in range(5))
         return max(t_both - t_flush, 0.0) / reps
@@ -532,12 +541,21 @@ def read_counts() -> dict:
             "string_match": sm.LAUNCH_COUNT}
 
 
-def timed_row(timer, name, kern, plain, n_bytes, n_ops, reps, **extra):
+def timed_row(timer, name, kern, plain, n_bytes, n_ops, reps,
+              plain_reps=None, **extra):
     """Kernel and plain version timed as phase 2 times them, beside the
-    bound (the larger of bytes / HBM rate and operations / int8 rate)."""
-    call_ms, plain_call_ms = timer.call_ms(kern), timer.call_ms(plain)
+    bound (the larger of bytes / HBM rate and operations / int8 rate).
+    With ``plain_reps`` (a plain version of thousands of launches) the
+    plain version is timed by CUDA events over that many calls only, and
+    its ``plain_ms`` is that per-call time."""
+    call_ms = timer.call_ms(kern)
     ms = timer.graph_ms(kern, reps=reps)
-    plain_ms = timer.graph_ms(plain, reps=reps)
+    if plain_reps:
+        plain_call_ms = timer.call_ms(plain, reps=plain_reps, warmup=1)
+        plain_ms = plain_call_ms
+    else:
+        plain_call_ms = timer.call_ms(plain)
+        plain_ms = timer.graph_ms(plain, reps=reps)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
     row = {"shape": name, **extra, "ms": ms, "plain_ms": plain_ms,
@@ -558,6 +576,95 @@ def assert_equal(torch, got, want, what: str) -> int:
                 if got.shape == want.shape else -1)
         raise AssertionError(f"kernel != plain: {what} (max diff {diff})")
     return 0
+
+
+def flat_edge_cases(np, torch) -> int:
+    """The flat search against its plain version at the edges of its
+    design: R at every word-count template's edge, C = 1, 3, 513 and 1000
+    (the 4-column vectors' tails), Q = 1, 63, 65 and 130 (the staged query
+    chunks), all-zero and partial masks, int8 and packed8 planes, and a
+    plane view at an odd address.  Returns the number of cases."""
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+
+    rng = np.random.default_rng(11)
+    n_cases = 0
+    for r in (1, 31, 32, 33, 64, 65, 511, 512):
+        for c in (1, 3, 513, 1000):
+            for q in (1, 63, 65, 130):
+                keys = rng.integers(0, 2, (q, r)).astype(np.int8)
+                data = rng.integers(0, 2, (r, c)).astype(np.int8)
+                masks = (rng.random((q, r)) < 0.95).astype(np.int8)
+                masks[1::4] = 0
+                masks[2::4, : (r + 1) // 2] = 0
+                for i in range(0, q, 3):
+                    data[:, (7 * i) % c] = keys[i]
+                k, m, d = (torch.from_numpy(x).cuda()
+                           for x in (keys, masks, data))
+                for packed in (False, True):
+                    dd = xam.pack_rows(d) if packed else d
+                    assert_equal(torch, xam.xam_search_device(k, dd, m),
+                                 xam_search_plain(k, dd, m),
+                                 f"flat search q={q} r={r} c={c} "
+                                 f"packed={packed}")
+                    n_cases += 1
+    for packed in (False, True):
+        d = torch.from_numpy(rng.integers(0, 2, (64, 512)).astype(np.int8)
+                             ).cuda()
+        d = xam.pack_rows(d) if packed else d
+        store = torch.empty(d.numel() + 1, dtype=d.dtype, device="cuda")
+        view = store[1:].view(d.shape)
+        view.copy_(d)
+        k = torch.from_numpy(rng.integers(0, 2, (70, 64)).astype(np.int8)
+                             ).cuda()
+        m = torch.ones_like(k)
+        k[5] = 0
+        assert_equal(torch, xam.xam_search_device(k, view, m),
+                     xam_search_plain(k, d, m),
+                     f"flat search, unaligned plane view packed={packed}")
+        n_cases += 1
+    return n_cases
+
+
+def string_edge_cases(np, torch) -> int:
+    """The string match against its plain version at the edges of its
+    design: text views at byte offsets 0, 1, 3 and 15, N = 2 x 16 KiB + 37
+    (not a multiple of 16), P = 0, 1, 3, 4, 5, 15, 16, 17, 4095 and 4096,
+    matches planted across a 16-byte group, the first tile edge and at the
+    end; P > N; one repeated byte.  Returns the number of cases."""
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+
+    rng = np.random.default_rng(12)
+    n = 2 * 16384 + 37
+    n_cases = 0
+    for p in (0, 1, 3, 4, 5, 15, 16, 17, 4095, 4096):
+        for offset in (0, 1, 3, 15):
+            text = rng.integers(97, 99, n + offset).astype(np.uint8)
+            pat = rng.integers(97, 99, p).astype(np.uint8)
+            for start in (16 * 5 + 13, 16384 - p // 2, n - p):
+                if 0 <= start <= n - p:
+                    text[offset + start:offset + start + p] = pat
+            tt = torch.from_numpy(text).cuda()[offset:]
+            pt = torch.from_numpy(pat).cuda()
+            got = sm.string_match(tt, pt)
+            assert_equal(torch, got, string_match_plain(tt, pt),
+                         f"string match P={p} offset={offset}")
+            if p and int(got[n - p]) != 1:
+                raise AssertionError("a planted match at the end was lost")
+            n_cases += 1
+    same = torch.full((n,), 97, dtype=torch.uint8, device="cuda")[1:]
+    for text_t, p in [(same, 1), (same, 4), (same, 5), (same, 64),
+                      (same, 4096), (same[:37], 38), (same[:5], 4096)]:
+        pt = torch.full((p,), 97, dtype=torch.uint8, device="cuda")
+        got = sm.string_match(text_t, pt)
+        assert_equal(torch, got, string_match_plain(text_t, pt),
+                     f"string match, repeated byte, N={text_t.shape[0]} "
+                     f"P={p}")
+        if int(got.sum()) != max(text_t.shape[0] - p + 1, 0):
+            raise AssertionError("repeated byte: a match was lost")
+        n_cases += 1
+    return n_cases
 
 
 # ---------------------------------------------------------------------------
@@ -597,6 +704,7 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
     from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
     from repro_torch.kernels.string_match import ops as sm
     from repro_torch.kernels.string_match.ref import string_match_plain
+    from repro_torch.kernels.xam_search import kernel as xam_kernel
     from repro_torch.kernels.xam_search import ops as xam
     from repro_torch.kernels.xam_search.ref import xam_search_plain
 
@@ -646,13 +754,35 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
                  "string match, 500 MiB corpus, P=12")
     if int(got[at]) != 1:
         raise AssertionError("the 500 MiB corpus lost its own pattern")
-    log(f"string-match kernel == plain version on {len(edge) + 1} cases "
-        "(P = 1, 3, 12, 4096, P > N, matches across tiles)")
-    out["string_match"] = {"max_abs_err": 0.0, "shapes": [timed_row(
+    n_edge = string_edge_cases(np, torch)
+    log(f"string-match kernel == plain version on {len(edge) + 1 + n_edge} "
+        "cases (P = 0..4096 around the prefix filter and the 16-position "
+        "groups, text views at byte offsets 1, 3 and 15, P > N, matches "
+        "across groups and tiles, one repeated byte)")
+    rows = [timed_row(
         timer, "string match, 500 MiB corpus, P=12",
         lambda: sm.string_match(corpus_t, pat_t),
         lambda: string_match_plain(corpus_t, pat_t), 2 * n + 12, n, reps=5,
-        text_bytes=n, pattern_len=12)]}
+        text_bytes=n, pattern_len=12)]
+    # P = 1 and P = 4096 on the corpus; one repeated byte with P = 64, where
+    # every position compares the whole pattern (the worst case).
+    same_t = torch.full((n,), 97, dtype=torch.uint8, device="cuda")
+    for name, text_t, p in [("P=1", corpus_t, 1), ("P=4096", corpus_t, 4096),
+                            ("one repeated byte, P=64", same_t, 64)]:
+        pt = text_t[at:at + p].clone()
+        want = string_match_plain(text_t, pt)
+        assert_equal(torch, sm.string_match(text_t, pt), want,
+                     f"string match, 500 MiB, {name}")
+        n_ops = int(want.sum()) * p if text_t is same_t else n
+        rows.append(timed_row(
+            timer, f"string match, 500 MiB, {name}",
+            lambda: sm.string_match(text_t, pt),
+            lambda: string_match_plain(text_t, pt), 2 * n + p, n_ops,
+            reps=5, plain_reps=2 if p > 64 else None, text_bytes=n,
+            pattern_len=p))
+        del want
+    del same_t
+    out["string_match"] = {"max_abs_err": 0.0, "shapes": rows}
 
     # Flat search: Fig. 6 and dedup shapes, int8 and packed8 planes.
     rows = []
@@ -677,16 +807,38 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
             if name == "ragged":
                 continue
             n_bytes = 2 * q * r + dd.numel() + q * c
+            warm = {}
+            if q == 1:           # launch floor vs cold-memory round trip
+                warm["warm_ms"] = timer.graph_ms(
+                    lambda: xam.xam_search_device(k, dd, m), reps=100,
+                    flush=False)
             rows.append(timed_row(
                 timer, f"flat search {name} "
                 f"({'packed8' if packed else 'int8'})",
                 lambda: xam.xam_search_device(k, dd, m),
                 lambda: xam_search_plain(k, dd, m), n_bytes, q * r * c,
-                reps=5 if q * c > 1 << 20 else 20, queries=q, key_bits=r,
-                columns=c, plane_format="packed8" if packed else "int8"))
-    log("flat-search kernel == plain version on 6 cases (int8/packed8, "
-        "all-masked and partial masks, ragged R and C)")
-    out["xam_search"] = {"max_abs_err": 0.0, "shapes": rows}
+                reps=5 if q * c > 1 << 20 else 100, queries=q, key_bits=r,
+                columns=c, plane_format="packed8" if packed else "int8",
+                **warm))
+    n_edge = flat_edge_cases(np, torch)
+    log(f"flat-search kernel == plain version on {6 + n_edge} cases "
+        "(int8/packed8, all-masked and partial masks, R at every word "
+        "template's edge, ragged C and Q, an unaligned plane view)")
+    # The launch floor: one empty block, timed as the kernels are (100 reps:
+    # a µs kernel beside 100 L2 flushes).  The Fig. 6 search is held to
+    # 1.5x of it.
+    floor_ms = timer.graph_ms(xam_kernel.empty_kernel_cuda, reps=100)
+    rows.append({"shape": "empty kernel (launch floor)", "ms": floor_ms,
+                 "warm_ms": timer.graph_ms(xam_kernel.empty_kernel_cuda,
+                                           reps=100, flush=False),
+                 "call_ms": timer.call_ms(xam_kernel.empty_kernel_cuda)})
+    ratio = rows[0]["ms"] / floor_ms if floor_ms > 0 else float("inf")
+    log(f"time empty kernel: {floor_ms:.6f} ms (warm L2 "
+        f"{rows[-1]['warm_ms']:.6f}); Fig. 6 int8 search "
+        f"{rows[0]['ms']:.6f} ms = {ratio:.3f} x the floor (warm L2 "
+        f"{rows[0]['warm_ms']:.6f} ms)")
+    out["xam_search"] = {"max_abs_err": 0.0, "shapes": rows,
+                         "floor_ms": floor_ms, "fig6_over_floor": ratio}
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -892,7 +1044,76 @@ def stringmatch_phase(np, torch, corpus_t) -> dict:
         f"launches {counts['string_match']}")
     return {"seconds": seconds, "ms_per_find": seconds * 1e3 / 32,
             "matches": [r.n_matches for r in reports],
-            "launches": counts}
+            "launches": counts, "find_breakdown": find_breakdown(
+                np, torch, corpus_t, pats[0])}
+
+
+def added_peak_bytes(torch, fn) -> int:
+    """Device memory that ``fn`` allocates at its peak beyond what was
+    allocated before it (after a synchronisation)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def find_breakdown(np, torch, corpus_t, pattern: bytes) -> dict:
+    """One ``find`` taken apart on the host clock (each step ending in a
+    synchronisation): pattern upload, kernel, count, read-back, beside the
+    whole call; the count's device time, and the peak device memory that a
+    ``find`` adds and that each way of counting the (N,) int8 flags adds:
+    the port's ``count_flags`` against ``sum(dtype=torch.int64)`` and
+    ``torch.count_nonzero``."""
+    from repro_torch.apps import stringmatch
+    from repro_torch.kernels.string_match import ops as sm
+
+    n = corpus_t.shape[0]
+    upload = lambda: torch.frombuffer(bytearray(pattern),
+                                      dtype=torch.uint8).cuda()
+    pt = upload()
+    flags = sm.string_match(corpus_t, pt)
+    count = sm.count_flags(flags)
+    timer = CudaTimer(torch)
+    res = {
+        "find_ms": host_ms(torch, lambda: stringmatch.find(corpus_t, pattern),
+                           10),
+        "upload_ms": host_ms(torch, upload, 10),
+        "kernel_ms": host_ms(torch, lambda: sm.string_match(corpus_t, pt),
+                             10),
+        "count_ms": host_ms(torch, lambda: sm.count_flags(flags), 10),
+        "readback_ms": host_ms(torch, lambda: int(count), 10),
+        "count_device_ms": timer.graph_ms(lambda: sm.count_flags(flags),
+                                          reps=5),
+        "sum_int64_ms": host_ms(torch, lambda: flags.sum(dtype=torch.int64),
+                                10),
+        "sum_int64_device_ms": timer.graph_ms(
+            lambda: flags.sum(dtype=torch.int64), reps=5),
+        "count_nonzero_ms": host_ms(torch,
+                                    lambda: torch.count_nonzero(flags), 10),
+        "text_bytes": n,
+    }
+    del timer
+    if int(count) != int(torch.count_nonzero(flags)):
+        raise AssertionError("count_flags != count_nonzero")
+    for name, fn in [("count", lambda: sm.count_flags(flags)),
+                     ("sum_int64", lambda: flags.sum(dtype=torch.int64)),
+                     ("count_nonzero", lambda: torch.count_nonzero(flags))]:
+        res[f"{name}_added_bytes"] = added_peak_bytes(torch, fn)
+    del flags, count
+    res["find_added_bytes"] = added_peak_bytes(
+        torch, lambda: stringmatch.find(corpus_t, pattern))
+    if res["find_added_bytes"] > 2 * n:
+        raise AssertionError(f"a find adds {res['find_added_bytes']} bytes "
+                             f"of device memory, more than 2 N = {2 * n}")
+    log("find broken down (ms, host clock): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res.items() if k.endswith("_ms"))
+        + f"; a find adds {res['find_added_bytes'] / n:.4f} N bytes at its "
+        f"peak; counting adds {res['count_added_bytes'] / n:.4f} N "
+        f"(sum(dtype=int64) {res['sum_int64_added_bytes'] / n:.4f} N, "
+        f"count_nonzero {res['count_nonzero_added_bytes'] / n:.4f} N)")
+    return res
 
 
 def monarch_api_phase(np, torch) -> dict:
@@ -947,21 +1168,27 @@ def monarch_api_phase(np, torch) -> dict:
     words[rng.choice(c, q // 3, replace=False)] = fps[: q // 3]
     bits = ((words[None, :] >> np.arange(32, dtype=np.uint32)[:, None]) & 1
             ).astype(np.int8)
+    bits_t = torch.from_numpy(bits).cuda()
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
-    got = dedup_mask(fps, torch.from_numpy(bits).cuda())
-    dedup_ms = (time.perf_counter() - t2) * 1e3
+    got = dedup_mask(fps, bits_t)
+    dedup_first_ms = (time.perf_counter() - t2) * 1e3
     if not np.array_equal(got, np.isin(fps, words)):
         raise AssertionError("dedup_mask disagrees with np.isin")
     counts = read_counts()
     if counts["xam_search"] != searches + 1:
         raise AssertionError("dedup_mask did not run one flat launch")
+    dedup_ms = host_ms(torch, lambda: dedup_mask(fps, bits_t), 5)
     log(f"MonarchDevice {dev.n_sets}x{dev.key_bits}x{dev.set_cols}: filled "
         f"{n} keys in {fill_s:.1f} s; 256 stored + {len(absent)} absent "
         f"lookups + 1 masked in {lookup_s:.2f} s, {searches} S commands == "
-        f"{flat} flat launches; dedup_mask {q}x{r}x{c} {dedup_ms:.3f} ms "
-        f"({int(got.sum())} duplicates)")
+        f"{flat} flat launches ({lookup_s * 1e3 / searches:.4f} ms per "
+        f"command); dedup_mask {q}x{r}x{c} {dedup_ms:.3f} ms (first call "
+        f"{dedup_first_ms:.3f} ms, {int(got.sum())} duplicates)")
     return {"fill_s": fill_s, "lookup_s": lookup_s, "searches": searches,
-            "dedup_ms": dedup_ms, "launches": counts}
+            "ms_per_search_command": lookup_s * 1e3 / searches,
+            "dedup_ms": dedup_ms, "dedup_first_ms": dedup_first_ms,
+            "launches": counts}
 
 
 def main() -> int:
@@ -1051,7 +1278,9 @@ def main() -> int:
             "ms": shapes[row]["ms"], "plain_ms": shapes[row]["plain_ms"],
             "bound_ms": shapes[row]["bound_ms"],
             "bound_by": shapes[row]["bound_by"], "library_ms": None,
-            "shapes": shapes})
+            "shapes": shapes,
+            **{k: v for k, v in slice2[name].items()
+               if k not in ("max_abs_err", "shapes")}})
     print(json.dumps({"kernels": kernels, "builds": builds,
                       "serve": served["times"],
                       "resume_check": served["resume_check"],

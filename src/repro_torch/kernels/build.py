@@ -5,9 +5,9 @@ and an error-string function.  :func:`compile_and_load` compiles one
 source with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` of the
 checkout at first use, names the library by a hash of the source (an
 edited source never loads a stale library), renames it into place
-atomically (two processes may build at once), and loads it with
-``ctypes``.  Nothing is built when a module is imported: the kernel
-modules call this from their launch path.
+atomically (two processes, or two threads, may build one source at once),
+and loads it with ``ctypes``.  Nothing is built when a module is
+imported: the kernel modules call this from their launch path.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -70,7 +71,8 @@ def compile_and_load(src: pathlib.Path, prefix: str) -> KernelLibrary:
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        tmp = so.with_name(
+            f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(src), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -18,8 +18,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import KernelLibrary
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "string_match.cu"
-#: Bytes per search command: one CUDA block per text tile (paper §10.5).
-TILE = 4096
+#: Text bytes per CUDA block (four of the paper's 4 KiB search commands,
+#: ``apps/stringmatch.SEARCH_COVERAGE``, which does not depend on it).
+TILE = 16384
 #: Longest pattern the kernel stages in shared memory.
 MAX_PATTERN = 4096
 
@@ -38,8 +39,10 @@ def library() -> KernelLibrary:
 def string_match_cuda(text: torch.Tensor,
                       pattern: torch.Tensor) -> torch.Tensor:
     """Launch on the current stream (no synchronisation).  text (N,) and
-    pattern (P,) uint8, contiguous, on one CUDA device, P <= 4096; returns
-    the (N,) int8 flags, allocated here."""
+    pattern (P,) uint8, contiguous, on one CUDA device, P <= 4096; the
+    text may start at any byte offset (a view such as ``text[3:]``).
+    Returns the (N,) int8 flags, allocated here (16-byte aligned, as the
+    kernel's wide stores need)."""
     build.check_cuda_operands("string_match_cuda", text, pattern)
     kl = library()
     out = torch.empty(text.shape[0], dtype=torch.int8, device=text.device)

@@ -49,4 +49,30 @@ def string_match(text: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
 
 def count_matches(text: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
     """Number of match starts, as a 0-d int64 tensor on the text's device."""
-    return string_match(text, pattern).sum(dtype=torch.int64)
+    return count_flags(string_match(text, pattern))
+
+
+#: int64 words summed per byte lane: 255 flags of 0/1 never carry out of
+#: their byte.
+_LANE_WORDS = 255
+
+
+def count_flags(flags: torch.Tensor) -> torch.Tensor:
+    """Exact number of ones in (N,) int8 0/1 flags, as a 0-d int64 tensor,
+    without widening them.
+
+    ``flags.sum(dtype=torch.int64)`` and ``torch.count_nonzero`` both
+    first materialise an (N,) int64 copy on the card (8N and 9N bytes at
+    the peak).  Here the flags are read as int64 words of 8 byte lanes;
+    summing 255 words adds each lane's flags into its own byte with no
+    carry, and the lanes of the (N / 2040,) sums are added last, so the
+    extra memory is N / 16 bytes.  ``flags`` must start at an 8-byte
+    aligned storage offset (a fresh allocation does)."""
+    n = flags.shape[0]
+    body = n // (8 * _LANE_WORDS) * (8 * _LANE_WORDS)
+    tail = flags[body:].sum(dtype=torch.int64)      # under 2040 flags
+    if body == 0:
+        return tail
+    lanes = flags[:body].view(torch.int64).view(-1, _LANE_WORDS).sum(dim=1)
+    shifts = torch.arange(0, 64, 8, dtype=torch.int64, device=flags.device)
+    return ((lanes[:, None] >> shifts) & 0xFF).sum() + tail

@@ -7,110 +7,262 @@
 // packed words, logical row r = bit r % 8 of packed row r / 8, Rp * 8 >= R
 // -- out[q, c] = 1 iff every masked-in key bit equals the stored bit of
 // column c.  An all-zero mask row matches every column (the TPU kernel's
-// score >= n_selected with n_selected == 0).
-//
-// Design.  A grid over (column blocks, query blocks).  Each thread owns one
-// column: it reads that column's bits once (neighbouring threads read
-// neighbouring bytes of a plane row, so the loads coalesce) into
-// ceil(R/32) 32-bit words held in registers -- a column is only ever read
-// by its own thread, so staging it in shared memory would buy nothing.
-// The block's queries are staged in shared memory as key and mask words.
-// Then the thread loops over the block's queries and writes
-// out[q, c] = AND_w (((col_w ^ key_w) & mask_w) == 0), so each query row of
-// the output is written by consecutive threads, coalesced along C.  The
-// TPU's +-1 matmul (int8 exact, or f32 with a 0.5 guard band) is an exact
-// compare in disguise: the bitwise test serves both "scorings".  When the
-// grid's y extent is capped, a block walks several query blocks and keeps
-// its column words.
+// score >= n_selected with n_selected == 0).  The TPU's +-1 matmul (int8
+// exact, or f32 with a 0.5 guard band) is an exact compare in disguise:
+// the bitwise test ((col ^ key) & mask) == 0 serves both "scorings".
 //
 // Bound on this card.  A few integer operations per (query, column, word),
 // so the kernel is bound by bytes: the (Q, C) int8 output dominates at the
-// dedup shapes (4096 x 65536 = 268 MB), then the plane (R x C bytes, or
-// R x C / 8 packed) and the keys and masks (2 x Q x R bytes).  Byte-wide
-// stores of the output are the first thing a faster version would widen.
+// dedup shape (4096 x 65536 = 268 MB), then the plane and the keys.  At
+// the Fig. 6 shape (1 x 64 x 512) no launch reaches the byte bound; there
+// the kernel is bound by the latency of its dependent steps, and the goal
+// is to stay near an empty kernel's time.
+//
+// Design.  What held a thread-per-column, byte-at-a-time version back was
+// load latency, not bytes: 32 dependent byte loads per column word, and one
+// thread packing each query word with 64 more.  Here:
+//  - A thread owns 4 adjacent columns.  One 32-bit load of a plane row
+//    brings the 4 columns' bytes; the kernel is templated on the number of
+//    32-bit words (1, 2, 4, 8, 16: R <= 32, 64, 128, 256, 512) so the row
+//    loop unrolls and every row load of a column is independent and in
+//    flight at once.  int8 rows are folded 8 at a time into packed bytes
+//    ((row & 0x01010101) << b), so both plane formats end in the same
+//    4-row byte transpose (__byte_perm) to the 4 columns' words.
+//  - Keys and masks are staged with warp ballots: a warp reads 32
+//    consecutive key bytes of one query row in one coalesced load and
+//    __ballot_sync turns them into the row's 32-bit key (and mask) word.
+//    No thread packs a word bit by bit, and no second launch is needed.
+//    A warp loads its first kPrefetch steps' key bytes before the columns,
+//    so a one-query search waits for one round trip to memory, not two.
+//  - A thread writes its 4 columns of a query row as one 4-byte store, so a
+//    warp stores 128 contiguous bytes per instruction.  Ragged C (not a
+//    multiple of 4, or a plane view not 4-byte aligned) and ragged R are
+//    masked inside the kernel with byte loads and stores; nothing is padded.
+//  - The column words stay in registers while the block walks its queries.
+//    The grid's query split is only as fine as filling the 132 SMs needs
+//    (kTargetBlocks, over two waves): a block re-reads its columns from L2
+//    only for that split, and walks its contiguous query range in chunks of
+//    kQChunk staged in shared memory.  A grid too small to cover the SMs
+//    (the Fig. 6 shape: 512 columns, one query) takes narrower blocks, down
+//    to one warp, so its plane is pulled through several SMs at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kCols = 256;      // threads per block, one column each
-constexpr int kQBlock = 64;     // queries staged per block
-constexpr int kMaxWords = 16;   // key rows <= 512
+constexpr int kThreads = 256;         // largest block; small grids use less
+constexpr int kColsPerThread = 4;
+constexpr int kQChunk = 64;           // queries staged in shared memory
+constexpr int kPrefetch = 2;          // staging steps a warp loads up front
+constexpr int kSMs = 132;
+constexpr int kMaxWords = 16;         // key rows <= 512
+constexpr int kTargetBlocks = 2048;   // about 2 waves of 8 blocks / 132 SMs
 constexpr int kMaxGridY = 65535;
 
-__global__ void __launch_bounds__(kCols)
+// Four bytes of one plane row, one per column col0 .. col0 + 3 (0 past C),
+// byte by byte: the path of a ragged or unaligned C.
+__device__ __forceinline__ uint32_t load_row4_bytes(
+    const uint8_t* __restrict__ row, long col0, int c) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < kColsPerThread; ++j)
+    if (col0 + j < c) v |= static_cast<uint32_t>(__ldg(row + col0 + j)) << (8 * j);
+  return v;
+}
+
+// Four packed rows (byte j of each = column j) -> each column's 32-bit
+// word, byte k of word j = byte j of row k.
+__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1,
+                                           uint32_t r2, uint32_t r3,
+                                           uint32_t out[kColsPerThread]) {
+  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
+  out[0] = __byte_perm(lo01, lo23, 0x5410);
+  out[1] = __byte_perm(lo01, lo23, 0x7632);
+  out[2] = __byte_perm(hi01, hi23, 0x5410);
+  out[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// The 4 columns' words from 4-byte row loads (C % 4 == 0, aligned, col0 + 4
+// <= C).  Every load is unconditional -- rows past R re-read the last row and
+// are masked off -- so the unrolled loads form one straight block with no
+// branch between them.  (Predicated loads measured slower on the card.)
+// int8 rows fold 8 at a time into packed bytes.
+template <int NW, bool PACKED>
+__device__ __forceinline__ void load_columns_vec(
+    const uint8_t* __restrict__ data, int r, int c, long col0,
+    uint32_t colw[NW][kColsPerThread]) {
+  const int prows = (r + 7) / 8;         // packed rows that hold key rows
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    uint32_t rows[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int pr = 4 * w + k;           // logical rows 8pr .. 8pr + 7
+      uint32_t v = 0;
+      if (PACKED) {
+        const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(
+            data + static_cast<long>(min(pr, prows - 1)) * c + col0));
+        v = pr < prows ? x : 0u;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const int row = 8 * pr + b;
+          const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(
+              data + static_cast<long>(min(row, r - 1)) * c + col0));
+          v |= (row < r ? x & 0x01010101u : 0u) << b;
+        }
+      }
+      rows[k] = v;
+    }
+    transpose4(rows[0], rows[1], rows[2], rows[3], colw[w]);
+  }
+}
+
+// The same words byte by byte: a ragged C tail, C % 4 != 0 or a plane view
+// that is not 4-byte aligned.  Columns past C read as 0.
+template <int NW>
+__device__ __forceinline__ void load_columns_bytes(
+    const uint8_t* __restrict__ data, int r, int c, long col0, bool live,
+    int packed, uint32_t colw[NW][kColsPerThread]) {
+  const int prows = (r + 7) / 8;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    uint32_t rows[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int pr = 4 * w + k;
+      uint32_t v = 0;
+      if (live && pr < prows) {
+        if (packed) {
+          v = load_row4_bytes(data + static_cast<long>(pr) * c, col0, c);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const int row = 8 * pr + b;
+            if (row < r)
+              v |= (load_row4_bytes(data + static_cast<long>(row) * c, col0, c) &
+                    0x01010101u) << b;
+          }
+        }
+      }
+      rows[k] = v;
+    }
+    transpose4(rows[0], rows[1], rows[2], rows[3], colw[w]);
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
 xam_search_kernel(const int8_t* __restrict__ keys,
                   const int8_t* __restrict__ masks,
                   const uint8_t* __restrict__ data,
                   int8_t* __restrict__ out,
-                  int q, int r, int rp, int c, int packed) {
-  __shared__ uint32_t s_key[kQBlock * kMaxWords];
-  __shared__ uint32_t s_mask[kQBlock * kMaxWords];
-  const int nw = (r + 31) / 32;
-  const long col = static_cast<long>(blockIdx.x) * kCols + threadIdx.x;
-  const bool live = col < c;
+                  int q, int r, int c, int packed, int vec_ok,
+                  int q_per_block) {
+  __shared__ uint2 s_km[kQChunk * NW];   // (key, mask) words per query
+  const long col0 =
+      (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * kColsPerThread;
+  const bool live = col0 < c;
+  const bool vec = vec_ok && col0 + kColsPerThread <= c;
 
-  // This thread's column as words: bit k of word w is logical row 32w + k.
-  uint32_t colw[kMaxWords];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int qa = blockIdx.y * q_per_block;
+  const int qz = min(q, qa + q_per_block);
+  // The key/mask bytes of this warp's first kPrefetch staging steps, loaded
+  // before the columns so both round trips to memory overlap.
+  int pf_k[kPrefetch], pf_m[kPrefetch];
 #pragma unroll
-  for (int wi = 0; wi < kMaxWords; ++wi) {
-    uint32_t word = 0;
-    if (live && wi < nw) {
-      if (packed) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int pr = wi * 4 + k;
-          if (pr < rp)
-            word |= static_cast<uint32_t>(data[static_cast<long>(pr) * c + col])
-                    << (8 * k);
-        }
-      } else {
-        for (int k = 0; k < 32; ++k) {
-          const int row = wi * 32 + k;
-          if (row < r)
-            word |= static_cast<uint32_t>(data[static_cast<long>(row) * c + col] & 1)
-                    << k;
-        }
-      }
+  for (int i = 0; i < kPrefetch; ++i) {
+    const int p = warp + i * n_warps;
+    const int row = 32 * (p % NW) + lane;
+    pf_k[i] = pf_m[i] = 0;
+    if (p < min(kQChunk, qz - qa) * NW && row < r) {
+      const long at = static_cast<long>(qa + p / NW) * r + row;
+      pf_k[i] = keys[at];
+      pf_m[i] = masks[at];
     }
-    colw[wi] = word;
   }
 
-  const int n_qblocks = (q + kQBlock - 1) / kQBlock;
-  for (int qb = blockIdx.y; qb < n_qblocks; qb += gridDim.y) {
-    const int q0 = qb * kQBlock;
-    const int nq = min(kQBlock, q - q0);
-    __syncthreads();  // the previous query block's words are consumed
-    for (int i = threadIdx.x; i < nq * nw; i += kCols) {
-      const int qi = i / nw;
-      const int wi = i % nw;
-      const int8_t* krow = keys + static_cast<long>(q0 + qi) * r;
-      const int8_t* mrow = masks + static_cast<long>(q0 + qi) * r;
-      uint32_t kw = 0, mw = 0;
-      for (int k = 0; k < 32; ++k) {
-        const int row = wi * 32 + k;
-        if (row < r) {
-          kw |= static_cast<uint32_t>(krow[row] & 1) << k;
-          mw |= static_cast<uint32_t>(mrow[row] != 0) << k;
+  // The 4 columns as words: bit k of colw[w][j] is logical row 32w + k of
+  // column col0 + j.
+  uint32_t colw[NW][kColsPerThread];
+  if (vec && packed)
+    load_columns_vec<NW, true>(data, r, c, col0, colw);
+  else if (vec)
+    load_columns_vec<NW, false>(data, r, c, col0, colw);
+  else
+    load_columns_bytes<NW>(data, r, c, col0, live, packed, colw);
+
+  for (int q0 = qa; q0 < qz; q0 += kQChunk) {
+    const int nq = min(kQChunk, qz - q0);
+    __syncthreads();                     // the previous chunk is consumed
+    // One warp per (query, word): a coalesced 32-byte load of the key and
+    // mask row, two ballots.  p is uniform across the warp.
+#pragma unroll 4
+    for (int p = warp, i = 0; p < nq * NW; p += n_warps, ++i) {
+      const int qi = p / NW;
+      const int row = 32 * (p % NW) + lane;
+      int kb = 0, mb = 0;
+      if (q0 == qa && i < kPrefetch) {
+#pragma unroll
+        for (int j = 0; j < kPrefetch; ++j) {   // registers: no dynamic index
+          kb = i == j ? pf_k[j] : kb;
+          mb = i == j ? pf_m[j] : mb;
         }
+      } else if (row < r) {
+        const long at = static_cast<long>(q0 + qi) * r + row;
+        kb = keys[at];
+        mb = masks[at];
       }
-      s_key[qi * kMaxWords + wi] = kw;
-      s_mask[qi * kMaxWords + wi] = mw;
+      const uint32_t kw = __ballot_sync(0xffffffffu, kb & 1);
+      const uint32_t mw = __ballot_sync(0xffffffffu, mb != 0);
+      if (lane == 0) s_km[p] = make_uint2(kw, mw);
     }
     __syncthreads();
     if (live) {
-      for (int qi = 0; qi < nq; ++qi) {
-        uint32_t miss = 0;
+      int8_t* orow = out + static_cast<long>(q0) * c + col0;
+      for (int qi = 0; qi < nq; ++qi, orow += c) {
+        uint32_t miss[kColsPerThread] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int wi = 0; wi < kMaxWords; ++wi)
-          if (wi < nw)
-            miss |= (colw[wi] ^ s_key[qi * kMaxWords + wi]) &
-                    s_mask[qi * kMaxWords + wi];
-        out[static_cast<long>(q0 + qi) * c + col] = miss == 0;
+        for (int w = 0; w < NW; ++w) {
+          const uint2 km = s_km[qi * NW + w];
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j)
+            miss[j] |= (colw[w][j] ^ km.x) & km.y;
+        }
+        const uint32_t flags = static_cast<uint32_t>(miss[0] == 0) |
+                               static_cast<uint32_t>(miss[1] == 0) << 8 |
+                               static_cast<uint32_t>(miss[2] == 0) << 16 |
+                               static_cast<uint32_t>(miss[3] == 0) << 24;
+        if (vec) {
+          *reinterpret_cast<uint32_t*>(orow) = flags;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j)
+            if (col0 + j < c) orow[j] = static_cast<int8_t>((flags >> (8 * j)) & 1);
+        }
       }
     }
   }
+}
+
+// The launch floor: one empty block of kThreads threads.
+__global__ void __launch_bounds__(kThreads) floor_kernel() {}
+
+template <int NW>
+void launch(dim3 grid, int threads, cudaStream_t s, const void* keys,
+            const void* masks, const void* data, void* out, int q, int r,
+            int c, int packed, int vec_ok, int q_per_block) {
+  xam_search_kernel<NW><<<grid, threads, 0, s>>>(
+      static_cast<const int8_t*>(keys), static_cast<const int8_t*>(masks),
+      static_cast<const uint8_t*>(data), static_cast<int8_t*>(out), q, r, c,
+      packed, vec_ok, q_per_block);
 }
 
 }  // namespace
@@ -118,18 +270,52 @@ xam_search_kernel(const int8_t* __restrict__ keys,
 extern "C" {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
+// rp (the packed row count) is implied by r for the search and is checked
+// by the caller; it stays in the signature for the bindings.
 int xam_search_launch(const void* keys, const void* masks, const void* data,
                       void* out, int q, int r, int rp, int c, int packed,
                       void* stream) {
+  (void)rp;
   if (q == 0 || c == 0) return 0;
-  if (r > kMaxWords * 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qblocks = (q + kQBlock - 1) / kQBlock;
-  const dim3 grid((c + kCols - 1) / kCols,
-                  n_qblocks < kMaxGridY ? n_qblocks : kMaxGridY);
-  xam_search_kernel<<<grid, kCols, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(keys), static_cast<const int8_t*>(masks),
-      static_cast<const uint8_t*>(data), static_cast<int8_t*>(out), q, r, rp,
-      c, packed);
+  if (r < 0 || r > kMaxWords * 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int nw = r <= 32 ? 1 : (r + 31) / 32;
+  const int vec_ok = r > 0 && c % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(data) & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const int q_chunks = (q + kQChunk - 1) / kQChunk;
+  // The widest block (down to one warp) whose grid still covers the SMs:
+  // a small search spreads its plane over more SMs' load paths.
+  int threads = kThreads;
+  while (threads > 32 &&
+         static_cast<long>((c + threads * kColsPerThread - 1) /
+                           (threads * kColsPerThread)) * q_chunks < kSMs)
+    threads /= 2;
+  const int col_blocks = (c + threads * kColsPerThread - 1) /
+                         (threads * kColsPerThread);
+  int grid_y = (kTargetBlocks + col_blocks - 1) / col_blocks;
+  grid_y = grid_y < q_chunks ? grid_y : q_chunks;
+  grid_y = grid_y < kMaxGridY ? grid_y : kMaxGridY;
+  const int q_per_block = (q + grid_y - 1) / grid_y;
+  grid_y = (q + q_per_block - 1) / q_per_block;     // no empty blocks
+  const dim3 grid(col_blocks, grid_y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nw <= 1)
+    launch<1>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+  else if (nw <= 2)
+    launch<2>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+  else if (nw <= 4)
+    launch<4>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+  else if (nw <= 8)
+    launch<8>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+  else
+    launch<16>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One empty block on `stream`: the launch floor that chip_smoke.py holds
+// the Fig. 6 time against.
+int xam_search_floor_launch(void* stream) {
+  floor_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,6 +43,8 @@ def flat_library() -> KernelLibrary:
     kl = build.compile_and_load(_CSRC / "xam_search.cu", "xam_search")
     kl.lib.xam_search_launch.argtypes = [_VP] * 4 + [_CI] * 5 + [_VP]
     kl.lib.xam_search_launch.restype = _CI
+    kl.lib.xam_search_floor_launch.argtypes = [_VP]
+    kl.lib.xam_search_floor_launch.restype = _CI
     return kl
 
 
@@ -105,3 +107,12 @@ def xam_search_cuda(keys: torch.Tensor, data: torch.Tensor,
         keys.data_ptr(), masks.data_ptr(), data.data_ptr(), out.data_ptr(),
         q, r, rp, c, int(data.dtype == torch.uint8), build.stream_of(data)))
     return out
+
+
+def empty_kernel_cuda(device: torch.device | str = "cuda") -> None:
+    """Launch one empty kernel (one block) on the current stream: the
+    launch floor a small search is measured against.  Not a search: it
+    counts as no launch of the flat search."""
+    kl = flat_library()
+    kl.check(kl.lib.xam_search_floor_launch(
+        torch.cuda.current_stream(device).cuda_stream))

@@ -150,3 +150,133 @@ def test_string_match_kernel_matches_plain(n, p):
         assert not bool(got.any())
     elif p > 0:
         assert got[n - p] == 1
+
+
+# ---------------------------------------------------------------------------
+# The redesigned flat search and string match at the edges their designs
+# introduce: word-count templates, 4-column vectors, ballot staging, 16-byte
+# text chunks at any byte offset, the 4-byte prefix filter.
+# ---------------------------------------------------------------------------
+
+def _flat_case(rng, q, r, c):
+    keys = rng.integers(0, 2, (q, r)).astype(np.int8)
+    data = rng.integers(0, 2, (r, c)).astype(np.int8)
+    masks = (rng.random((q, r)) < 0.95).astype(np.int8)
+    masks[1::4] = 0                          # all-zero mask rows
+    masks[2::4, : (r + 1) // 2] = 0          # partial masks
+    for i in range(0, q, 3):                 # planted hits
+        data[:, (7 * i) % c] = keys[i]
+    return keys, data, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("r", [1, 31, 32, 33, 64, 65, 511, 512])
+def test_flat_search_edges_match_plain(r, packed):
+    """R at each word-count template boundary, C = 1, 3, 513 and 1000 (the
+    4-column vectors' ragged tails), Q = 1, 63, 65 and 130 (the staged
+    query chunks), all-zero and partial masks."""
+    _needs_card()
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+    rng = np.random.default_rng(r)
+    for c in (1, 3, 513, 1000):
+        for q in (1, 63, 65, 130):
+            keys, data, masks = _flat_case(rng, q, r, c)
+            k, m, d = (torch.from_numpy(x).cuda() for x in (keys, masks,
+                                                            data))
+            if packed:
+                d = ops.pack_rows(d)
+            got = ops.xam_search_device(k, d, m)
+            want = xam_search_plain(k, d, m)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (q, r, c)
+            if q > 1:
+                assert bool((got[1] == 1).all())  # all-zero mask row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_flat_search_unaligned_plane_view(packed):
+    """A plane view whose data starts at an odd byte address: the kernel
+    takes the byte-load path and still equals the plain version."""
+    _needs_card()
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+    rng = np.random.default_rng(5)
+    keys, data, masks = _flat_case(rng, 70, 64, 512)
+    k, m = torch.from_numpy(keys).cuda(), torch.from_numpy(masks).cuda()
+    d = torch.from_numpy(data).cuda()
+    if packed:
+        d = ops.pack_rows(d)
+    store = torch.empty(d.numel() + 1, dtype=d.dtype, device="cuda")
+    view = store[1:].view(d.shape)
+    view.copy_(d)
+    assert view.data_ptr() % 4 != 0 and view.is_contiguous()
+    got = ops.xam_search_device(k, view, m)
+    assert torch.equal(got, xam_search_plain(k, d, m))
+
+
+_SM_N = 2 * 16384 + 37          # two 16 KiB tiles and a ragged tail
+
+
+def _sm_text(rng, n, p, offset):
+    """A two-letter text of n + offset bytes with matches planted across a
+    16-byte group, across the first tile edge and at the end; returns the
+    view text[offset:] and the pattern."""
+    text = rng.integers(97, 99, n + offset).astype(np.uint8)
+    pat = rng.integers(97, 99, p).astype(np.uint8)
+    for start in (16 * 5 + 13, 16384 - p // 2, n - p):
+        if 0 <= start <= n - p:
+            text[offset + start:offset + start + p] = pat
+    whole = torch.from_numpy(text).cuda()
+    return whole[offset:], torch.from_numpy(pat).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3, 15])
+@pytest.mark.parametrize("p", [0, 1, 3, 4, 5, 15, 16, 17, 4095, 4096])
+def test_string_match_edges_match_plain(p, offset):
+    """Text views at byte offsets 1, 3 and 15 (unaligned 16-byte chunks),
+    N not a multiple of 16, P around the 4-byte prefix filter and the
+    16-position groups, P = 4095 and 4096, matches across a group and a
+    tile edge."""
+    _needs_card()
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+    t, pt = _sm_text(np.random.default_rng(p + offset), _SM_N, p, offset)
+    assert t.data_ptr() % 16 == offset
+    got = sm.string_match(t, pt)
+    want = string_match_plain(t, pt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if p > 0:
+        assert int(got[_SM_N - p]) == 1
+        assert not bool(got[_SM_N - p + 1:].any())
+    else:
+        assert bool(got.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(37, 38), (5, 4096), (16, 17)])
+def test_string_match_pattern_longer_than_text(n, p):
+    _needs_card()
+    from repro_torch.kernels.string_match import ops as sm
+    text = torch.full((n,), 97, dtype=torch.uint8, device="cuda")
+    pat = torch.full((p,), 97, dtype=torch.uint8, device="cuda")
+    got = sm.string_match(text, pat)
+    assert got.shape == (n,) and not bool(got.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 5, 64, 4096])
+def test_string_match_repeated_byte(p):
+    """One repeated byte: every position that fits is a match, the worst
+    case for the compare loop."""
+    _needs_card()
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+    text = torch.full((_SM_N,), 97, dtype=torch.uint8, device="cuda")[1:]
+    pat = torch.full((p,), 97, dtype=torch.uint8, device="cuda")
+    got = sm.string_match(text, pat)
+    assert torch.equal(got, string_match_plain(text, pat))
+    assert int(got.sum()) == text.shape[0] - p + 1
+    assert int(sm.count_matches(text, pat)) == text.shape[0] - p + 1

@@ -116,3 +116,38 @@ def test_find_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_app.find(text, b"ab")
+
+
+@pytest.mark.parametrize("case", ["random", "no_match", "overlapping"])
+def test_count_matches_equals_reference(case):
+    """The port's count (int8 flags counted without an int64 copy) equals
+    the JAX ``count_matches`` on seeded corpora: a random 3-letter corpus,
+    a pattern that never occurs, and "aaaa" in a run of "a" (overlapping
+    matches at every position that fits).  The count is a 0-d int64."""
+    rng = np.random.default_rng({"random": 0, "no_match": 1,
+                                 "overlapping": 2}[case])
+    text = rng.integers(97, 100, 4096 * 2 + 91).astype(np.uint8)
+    pat = np.frombuffer(b"abca", np.uint8).copy()
+    if case == "no_match":
+        pat = np.frombuffer(b"abcz", np.uint8).copy()
+    elif case == "overlapping":
+        text[100:700] = 97
+        pat = np.frombuffer(b"aaaa", np.uint8).copy()
+    got = t_ops.count_matches(torch.from_numpy(text), torch.from_numpy(pat))
+    want = int(j_ops.count_matches(text, pat))
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == want
+    assert (want == 0) == (case == "no_match")
+    if case == "overlapping":
+        assert want >= 600 - 3
+
+
+@pytest.mark.parametrize("n", [0, 1, 2039, 2040, 2041, 2040 * 3 + 17])
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+def test_count_flags_exact(n, density):
+    """The byte-lane count at the edges of its 2040-flag body and its
+    tail, with every lane full (density 1: 255 ones per lane) and empty."""
+    flags = (np.random.default_rng(n).random(n) < density).astype(np.int8)
+    got = t_ops.count_flags(torch.from_numpy(flags))
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == int(flags.astype(np.int64).sum())
