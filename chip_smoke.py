@@ -13,8 +13,10 @@ code 1) on failure:
 2. Kernel against its plain version on the card: the fused multi-set XAM
    search (CUDA) against ``xam_search_multiset_plain`` over int8 and
    packed8 planes, both scorings, dead blocks, zero-mask rows and empty
-   sets — exact equality — then timed with CUDA events (L2 flushed
-   before every rep, median of the reps) at three shapes.
+   sets, and the edge matrix of its redesign (``multiset_edge_cases``:
+   R up to 512, C up to 5000, first matches at the column vectors' edges)
+   — exact equality — then timed with CUDA events (L2 flushed before
+   every rep, median of the reps) at four shapes.
 3. Serve: ``repro_torch.launch.serve`` at yi-9b full width and depth
    (d_model 4096, 32/4 heads, d_ff 11008, vocab 64000, 48 layers, bf16,
    seeded random weights on the card) answers 8 requests through the
@@ -30,9 +32,11 @@ code 1) on failure:
    queries), the string match (edge cases, then the 500 MiB corpus with
    P = 12, 1 and 4096, and one repeated byte with P = 64) and the flat
    XAM search (the Fig. 6 shape and a 4096 x 32 x 65,536 dedup shape,
-   int8 and packed8).  The edge matrices of the two redesigned kernels
-   (``flat_edge_cases``, ``string_edge_cases``) run here too, and an
-   empty kernel is timed as the launch floor of the Fig. 6 search.
+   int8 and packed8).  The edge matrices of the redesigned kernels
+   (``flat_edge_cases``, ``string_edge_cases``, ``hop_edge_cases``) run
+   here too; the hopscotch rows carry the sector-granular bound beside
+   the byte bound, and an empty kernel is timed as the launch floor
+   (``floor_ms`` of the Fig. 6, multi-set and hopscotch entries).
 5. The hash table: the host and device backends through one 2,000-op
    schedule with wear tracking, bit-identical on the card; then one
    Fig. 12-14 point, ``HopscotchTable(17, window=32, backend="device")``
@@ -260,6 +264,7 @@ def check_search_kernel(np, torch) -> float:
         if not bool((want >= 0).any()) or not bool((want == -1).any()):
             raise AssertionError("random-mask case exercised no hit/miss")
         n_cases += 1
+    n_cases += multiset_edge_cases(np, torch)
     # The host entry point on card planes against the same on CPU planes.
     planes = rng.integers(0, 2, (8, 32, 512)).astype(np.int8)
     valid = rng.integers(0, 2, (8, 512)).astype(np.int8)
@@ -276,8 +281,48 @@ def check_search_kernel(np, torch) -> float:
         raise AssertionError("xam_search_multiset: card != CPU")
     log(f"search kernel == plain version on {n_cases + 1} cases "
         "(int8/packed8 planes, both scorings, dead blocks, zero-mask "
-        "rows, empty sets)")
+        "rows, empty sets; R = 1..512, C = 96..5000, block_q 16 and 100, "
+        "first matches at the column vectors' and warps' edges, planes at "
+        "odd addresses)")
     return float(worst)
+
+
+def multiset_edge_cases(np, torch) -> int:
+    """The multi-set search against its plain version at the edges of its
+    design: R = 1, 24, 33, 64 and 512 (word templates), C = 96, 700 and
+    5000 (ragged tails, column chunks), block_q 16 and 100 (staged query
+    chunks), first matches at columns 0, 3, 4, 127, 128, 511 and C - 1,
+    zero-mask rows beside hits, a dead block, int8 and packed8, and planes
+    and validity at odd addresses.  Returns the number of cases."""
+    from repro_torch.kernels.xam_search import ops
+    from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
+
+    from repro_torch.kernels.edge_cases import multiset_edge_case
+    n_cases = 0
+    for r in (1, 24, 33, 64, 512):
+        for c, bq in ((96, 16), (700, 16), (700, 100), (5000, 16)):
+            for packed in (False, True):
+                *arrays, firsts = multiset_edge_case(r + c, r, c, bq, packed)
+                operands = [torch.from_numpy(x).cuda() for x in arrays]
+                got = ops.xam_search_multiset_device(*operands, block_q=bq)
+                want = xam_search_multiset_plain(*operands, block_q=bq)
+                assert_equal(torch, got, want, f"multi-set search r={r} c={c} "
+                             f"block_q={bq} packed={packed}")
+                if got[:len(firsts) * bq:bq].tolist() != firsts:
+                    raise AssertionError("a planted first match was missed")
+                n_cases += 1
+                if (r, c) == (64, 700):          # the same at odd addresses
+                    for i in (2, 3):
+                        t = operands[i]
+                        store = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                            device="cuda")
+                        operands[i] = store[1:].view(t.shape)
+                        operands[i].copy_(t)
+                    assert_equal(torch, ops.xam_search_multiset_device(
+                        *operands, block_q=bq), want,
+                        f"multi-set search, odd addresses, packed={packed}")
+                    n_cases += 1
+    return n_cases
 
 
 def time_search_kernel(np, torch, timer) -> list[dict]:
@@ -696,6 +741,55 @@ def hop_case(torch, log2_n, window, n_q, seed):
     return t_lo, t_hi, homes, q_lo, q_hi
 
 
+def hop_bytes(torch, ops_, want, window) -> tuple[int, int, int]:
+    """What one lookup batch needs, from its data: ``(bytes, sectors,
+    compares)``.  The function reads t_lo over each query's window up to the first hit
+    (the whole window for a miss), clipped to the table, and t_hi only
+    where t_lo equals the query's low half; each slot once, however many
+    windows share it; 16 bytes per query (home, key halves, result).
+    ``sectors`` counts the distinct 32-byte sectors those reads touch, the
+    granule in which DRAM serves scattered windows; ``compares`` one per
+    word each query reads."""
+    t_lo, _, homes, q_lo, _ = ops_
+    n = t_lo.shape[0]
+    h = homes.long()
+    touched = torch.where(want >= 0, want + 1, window).long()
+    off = torch.arange(window, device=h.device)
+    idx = h[:, None] + off
+    need = (off < touched[:, None]) & (idx >= 0) & (idx < n)
+    lo_hit = need & (t_lo[idx.clamp(0, n - 1)] == q_lo[:, None])
+
+    def distinct(slots, per):           # slots, or sectors of `per` slots
+        seen = torch.zeros(n // per + 1, dtype=torch.bool, device=h.device)
+        seen[slots // per] = True
+        return int(seen.sum())
+    lo, hi = idx[need], idx[lo_hit]
+    q = 16 * homes.shape[0]
+    return (4 * (distinct(lo, 1) + distinct(hi, 1)) + q,
+            32 * (distinct(lo, 8) + distinct(hi, 8)) + q,
+            lo.numel() + hi.numel())
+
+
+def hop_edge_cases(torch) -> int:
+    """The hopscotch lookup against its plain version at the edges of its
+    design: H = 1, 4, 33, 128 and 256 (lane groups of 1, 4 and 8; one to
+    eight steps), a first hit at every offset of a window, windows below 0
+    and past N.  Returns the number of cases."""
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
+
+    from repro_torch.kernels.edge_cases import hop_edge_case
+    for window in (1, 4, 33, 128, 256):
+        ops_ = [torch.from_numpy(x).cuda()
+                for x in hop_edge_case(window, window)]
+        got = hop.hopscotch_lookup_device(*ops_, window=window)
+        assert_equal(torch, got, hopscotch_lookup_plain(*ops_, window),
+                     f"hopscotch edges H={window}")
+        if got[:window].tolist() != list(range(window)):
+            raise AssertionError("a planted hopscotch first hit was missed")
+    return 5
+
+
 def kernels_phase(np, torch, timer, corpus_t) -> dict:
     """Exact equality of each new kernel with its plain version at the
     path's shapes and the edge cases, then the timings.  Returns
@@ -721,16 +815,20 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
             if not bool((want[::2] >= 0).all()):
                 raise AssertionError("a planted hopscotch hit was missed")
             n_cases += 1
-            touched = torch.where(want >= 0, want + 1, window)
-            n_bytes = 8 * int(touched.sum()) + 16 * n_q
+            n_bytes, sector_bytes, n_ops = hop_bytes(torch, ops_, want,
+                                                     window)
             rows.append(timed_row(
                 timer, f"hopscotch {name}, H={window}, Q={n_q}",
                 lambda: hop.hopscotch_lookup_device(*ops_, window=window),
                 lambda: hopscotch_lookup_plain(*ops_, window),
-                n_bytes, 2 * int(touched.sum()), reps=5 if n_q > 8192 else 20,
-                log2_slots=log2_n, window=window, queries=n_q))
+                n_bytes, n_ops,
+                reps=5 if n_q > 8192 else 20,
+                log2_slots=log2_n, window=window, queries=n_q,
+                sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3))
             del ops_
-    log(f"hopscotch kernel == plain version on {n_cases} cases")
+    n_cases += hop_edge_cases(torch)
+    log(f"hopscotch kernel == plain version on {n_cases} cases (H = 1..256, "
+        "a first hit at every offset, windows below 0 and past N)")
     out["hopscotch_lookup"] = {"max_abs_err": 0.0, "shapes": rows}
 
     # String match: edge cases, then the 500 MiB corpus with P = 12.
@@ -1259,6 +1357,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "floor_ms": slice2["xam_search"]["floor_ms"],
         "shapes": timing,
     }]
     # The shape each path runs: the 2^17-slot table at H=32, the 500 MiB
@@ -1281,6 +1380,9 @@ def main() -> int:
             "shapes": shapes,
             **{k: v for k, v in slice2[name].items()
                if k not in ("max_abs_err", "shapes")}})
+        if name == "hopscotch_lookup":
+            kernels[-1]["floor_ms"] = slice2["xam_search"]["floor_ms"]
+            kernels[-1]["sector_bound_ms"] = shapes[row]["sector_bound_ms"]
     print(json.dumps({"kernels": kernels, "builds": builds,
                       "serve": served["times"],
                       "resume_check": served["resume_check"],

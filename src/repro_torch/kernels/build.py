@@ -3,8 +3,9 @@
 Every kernel source (``kernels/*/csrc/*.cu``) exports a plain C launcher
 and an error-string function.  :func:`compile_and_load` compiles one
 source with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` of the
-checkout at first use, names the library by a hash of the source (an
-edited source never loads a stale library), renames it into place
+checkout at first use, names the library by a hash of the source and of
+the ``*.cuh`` headers beside it (an edited source or header never loads a
+stale library), renames it into place
 atomically (two processes, or two threads, may build one source at once),
 and loads it with ``ctypes``.  Nothing is built when a module is
 imported: the kernel modules call this from their launch path.
@@ -66,7 +67,10 @@ def compile_and_load(src: pathlib.Path, prefix: str) -> KernelLibrary:
     """Compile ``src`` (once per source version) and load it.  The caller
     sets the launcher's ``argtypes``; the error-string function is bound
     here."""
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     so = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     seconds, log = 0.0, ""
     if not so.exists():

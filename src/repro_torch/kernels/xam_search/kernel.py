@@ -2,7 +2,8 @@
 
 ``csrc/xam_multiset.cu`` (the fused multi-set first-match search) and
 ``csrc/xam_search.cu`` (the flat masked search, a (Q, C) bitmap) each
-export a plain C launcher; ``kernels/build.py`` compiles them with
+export a plain C launcher (both include the column loaders of
+``csrc/xam_columns.cuh``); ``kernels/build.py`` compiles them with
 ``nvcc`` for ``sm_90a`` at first use and loads them with ``ctypes``.
 Nothing is built when this module is imported.
 
@@ -22,9 +23,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import KernelLibrary
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-#: Largest dynamic shared memory one block may use on Hopper.
-MAX_SMEM_BYTES = 232_448
+#: Key rows both searches take (16 words of 32 bits in registers).
 MAX_KEY_BITS = 512
+#: Columns and query blocks travel as C ints to the multi-set launcher.
+MAX_INT32 = 2 ** 31 - 1
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 
@@ -48,12 +50,6 @@ def flat_library() -> KernelLibrary:
     return kl
 
 
-def smem_bytes(r: int, c: int) -> int:
-    """Dynamic shared memory of one live multi-set block (mirrors the C
-    helper)."""
-    return -(-r // 32) * c * 4 + -(-c // 4) * 4
-
-
 def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
                              planes: torch.Tensor, valid: torch.Tensor,
                              block_sets: torch.Tensor,
@@ -73,10 +69,9 @@ def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
     n_sets, rp, c = planes.shape
     if r > MAX_KEY_BITS:
         raise ValueError(f"key rows {r} exceed the kernel's {MAX_KEY_BITS}")
-    smem = smem_bytes(r, c)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"a {r}x{c} plane tile needs {smem} bytes of shared "
-                         f"memory; the card allows {MAX_SMEM_BYTES}")
+    if max(c, q // block_q) > MAX_INT32:
+        raise ValueError(f"{c} columns or {q // block_q} query blocks exceed "
+                         f"the launcher's {MAX_INT32}")
     kl = library()
     out = torch.empty(q, dtype=torch.int32, device=planes.device)
     kl.check(kl.lib.xam_multiset_launch(

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.common import pack_bits_np
+from repro_torch.kernels.edge_cases import hop_edge_case, multiset_edge_case
 from repro_torch.kernels.xam_search import ops
 from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
 
@@ -280,3 +281,66 @@ def test_string_match_repeated_byte(p):
     assert torch.equal(got, string_match_plain(text, pat))
     assert int(got.sum()) == text.shape[0] - p + 1
     assert int(sm.count_matches(text, pat)) == text.shape[0] - p + 1
+
+
+# ---------------------------------------------------------------------------
+# The redesigned multi-set search and hopscotch lookup at the edges their
+# designs introduce (the cases of ``repro_torch.kernels.edge_cases``).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("r", [1, 24, 33, 64, 512])
+def test_multiset_edges_match_plain(r, packed):
+    """R at the word-count templates' edges, C = 96, 700 (ragged) and 5000
+    (column chunks, beyond the old kernel's shared memory), block_q 16 and
+    100 (two staged query chunks), first matches at the 4-column vectors'
+    and warps' edges, zero-mask rows beside hits, a dead block."""
+    _needs_card()
+    for c, block_q in ((96, 16), (700, 16), (700, 100), (5000, 16)):
+        *arrays, firsts = multiset_edge_case(r + c, r, c, block_q, packed)
+        operands = [torch.from_numpy(x).cuda() for x in arrays]
+        got = ops.xam_search_multiset_device(*operands, block_q=block_q)
+        want = xam_search_multiset_plain(*operands, block_q=block_q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (r, c, block_q)
+        got = got.cpu().numpy()
+        assert got[:len(firsts) * block_q:block_q].tolist() == firsts
+        assert (got[1:len(firsts) * block_q:block_q] == -1).all()
+        assert (got[-2 * block_q:] == -1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_multiset_unaligned_plane_view(packed):
+    """Planes and validity that start at odd byte addresses: the kernel
+    takes the byte-load path and still equals the plain version."""
+    _needs_card()
+    *arrays, _ = multiset_edge_case(3, 64, 512, 16, packed)
+    operands = [torch.from_numpy(x).cuda() for x in arrays]
+    for i in (2, 3):
+        t = operands[i]
+        store = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        operands[i] = store[1:].view(t.shape)
+        operands[i].copy_(t)
+        assert operands[i].data_ptr() % 4 != 0
+    got = ops.xam_search_multiset_device(*operands, block_q=16)
+    assert torch.equal(got, xam_search_multiset_plain(*operands, block_q=16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 4, 33, 128, 256])
+def test_hopscotch_edges_match_plain(window):
+    """H = 1 (a lane per query), 4 (a group of 4), 33 (a second step of one
+    slot), 128 and 256 (four and eight steps of 32); a first hit at every
+    offset, windows past N and below 0."""
+    _needs_card()
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
+    ops_ = [torch.from_numpy(x).cuda() for x in hop_edge_case(window,
+                                                               window)]
+    got = hop.hopscotch_lookup_device(*ops_, window=window)
+    want = hopscotch_lookup_plain(*ops_, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[:window].tolist() == list(range(window))

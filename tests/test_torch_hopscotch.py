@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.hopscotch import ops as j_ops
 from repro.kernels.hopscotch.ref import hopscotch_lookup_ref
+from repro_torch.kernels.edge_cases import hop_edge_case
 from repro_torch.kernels.hopscotch import ops as t_ops
 from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
 
@@ -109,6 +110,32 @@ def test_plain_lookup_slots_outside_table_never_match():
     assert got.tolist() == [0, 2, 0]
     none = hopscotch_lookup_plain(t[:0], t[:0], homes, zero, zero, 4)
     assert none.tolist() == [-1, -1, -1]
+
+
+@pytest.mark.parametrize("window", [1, 4, 33, 128, 256])
+def test_lookup_edges_match_reference(window):
+    """The redesigned kernel's edge cases (``hop_edge_case``, shared with
+    the card tests): a first hit at every offset of a window, so in every
+    lane group and step; second copies later in windows; windows that start
+    below 0 and run past N.  The JAX op reads its table's pad, so the table
+    sits between pad slots whose keys no query holds (high half 2^32 - 1),
+    and a slot outside the port's table matches on neither side.  The JAX
+    Pallas kernel (interpret mode) runs for H <= 33, its oracle beyond."""
+    t_lo, t_hi, homes, q_lo, q_hi = hop_edge_case(window, window)
+    n = t_lo.shape[0]
+    total = -(-(2 * window + n + 2 * window + 8) // window) * window
+    p_lo = (0xDEAD0000 + np.arange(total)).astype(np.uint32)
+    p_hi = np.full(total, 0xFFFFFFFF, np.uint32)
+    p_lo[window:window + n] = t_lo.view(np.uint32)
+    p_hi[window:window + n] = t_hi.view(np.uint32)
+    want = j_ops.hopscotch_lookup(
+        p_lo, p_hi, homes + window, q_lo.view(np.uint32),
+        q_hi.view(np.uint32), window=window, use_kernel=window <= 33)
+    got = t_ops.hopscotch_lookup_device(
+        *(torch.from_numpy(x) for x in (t_lo, t_hi, homes, q_lo, q_hi)),
+        window=window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[:window].tolist() == list(range(window))
 
 
 def test_lookup_rejects_bad_operands():

@@ -13,6 +13,8 @@ import torch
 
 from repro.kernels.common import pack_bits_np
 from repro.kernels.xam_search import ops as j_ops
+from repro.kernels.xam_search.kernel import xam_search_multiset_pallas
+from repro_torch.kernels.edge_cases import multiset_edge_case
 from repro_torch.kernels.xam_search import ops as t_ops
 from repro_torch.kernels.xam_search.ref import (unpack_rows,
                                                 xam_search_multiset_plain)
@@ -94,6 +96,27 @@ def test_multiset_first_valid_way_wins_and_validity_fused():
     valid[1, 40] = valid[1, 70] = 1         # way 9 matches but is invalid
     got, want = _both(bits, np.asarray([1]), planes, valid)
     assert got[0] == want[0] == 40
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("r", [1, 24, 33, 64, 512])
+@pytest.mark.parametrize("c", [96, 700])
+def test_multiset_edges_match_reference(c, r, packed):
+    """The redesigned kernel's edge cases (``multiset_edge_case``, shared
+    with the card tests): first matches at columns 0, 3, 4, 127, 128, 511
+    and C - 1 among several valid matches, R across the word templates
+    (packed8 pads R to a multiple of 8), all-zero mask rows beside hits in
+    one set, a dead block and a set with no valid way.  The port's wrapper
+    (its plain version) against the JAX Pallas kernel in interpret mode,
+    exactly."""
+    *arrays, firsts = multiset_edge_case(r + c, r, c, 16, packed)
+    want = np.asarray(xam_search_multiset_pallas(
+        *(jnp.asarray(x) for x in arrays), block_q=16, interpret=True))
+    got = t_ops.xam_search_multiset_device(
+        *(torch.from_numpy(x) for x in arrays), block_q=16).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[:16 * len(firsts):16].tolist() == firsts
+    assert (got[1:16 * len(firsts):16] == -1).all()
 
 
 def test_plain_dead_blocks_and_zero_mask_rows(rng):

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time two source trees' flat-search and string-match kernels in turns.
+"""Time two source trees' XAM search, hopscotch and string-match kernels in
+turns.
 
-    python3 tools/torch_kernel_ab.py --old DIR [--json FILE]
+    python3 tools/torch_kernel_ab.py --old DIR [--only K[,K]] [--json FILE]
 
 ``DIR`` is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists).  The script builds that tree's
-``kernels/xam_search/csrc/xam_search.cu`` and
-``kernels/string_match/csrc/string_match.cu`` beside this tree's, with this
-tree's ``kernels/build.py`` (the launchers' C signatures are the same),
-holds every library exactly against the plain versions, and times them on
-one CUDA card in turns old, new, new, old at the main paths' shapes:
+``.gitignore`` lists).  The script builds that tree's four kernel sources
+(``xam_search.cu``, ``xam_multiset.cu``, ``hopscotch_lookup.cu``,
+``string_match.cu``) beside this tree's, with this tree's
+``kernels/build.py`` (the launchers' C signatures are the same), holds
+every library exactly against the plain versions, and times them on one
+CUDA card in turns old, new, new, old at the main paths' shapes:
 ``chip_smoke.CudaTimer.graph_ms`` (CUDA-graph replay, cold L2).  It also
-times this tree's empty kernel, the launch floor.  One JSON line per
-shape; with ``--json`` the whole report is written there too.  Needs a
+times this tree's empty kernel, the launch floor.  ``--only`` takes a
+comma-separated subset of the library prefixes (``xam_search``,
+``xam_multiset``, ``hopscotch_lookup``, ``string_match``).  One JSON line
+per shape; with ``--json`` the whole report is written there too.  Needs a
 card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -26,53 +29,70 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FLAT_SRC = "src/repro_torch/kernels/xam_search/csrc/xam_search.cu"
-SM_SRC = "src/repro_torch/kernels/string_match/csrc/string_match.cu"
+_K = "src/repro_torch/kernels/"
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+#: Library prefix -> (source under the tree's root, launcher argtypes).
+SOURCES = {
+    "xam_search": (_K + "xam_search/csrc/xam_search.cu",
+                   [_VP] * 4 + [_CI] * 5 + [_VP]),
+    "xam_multiset": (_K + "xam_search/csrc/xam_multiset.cu",
+                     [_VP] * 7 + [_CI] * 7 + [_VP]),
+    "hopscotch_lookup": (_K + "hopscotch/csrc/hopscotch_lookup.cu",
+                         [_VP] * 6 + [_CL, _CI, _CI, _VP]),
+    "string_match": (_K + "string_match/csrc/string_match.cu",
+                     [_VP] * 3 + [_CL, _CI, _VP]),
+}
 CORPUS_BYTES = 500 * 2 ** 20
 FLAT_SHAPES = [("Fig. 6", (1, 64, 512)), ("dedup", (4096, 32, 65536))]
+MULTISET_SHAPES = [("main path", 8, 12), ("one-card index", 128, 4096)]
+HOP_SHAPES = [(17, 8192, 32), (25, 1 << 20, 4), (25, 1 << 20, 32),
+              (25, 1 << 20, 128)]
 SM_CASES = [("P=12", 12, False), ("P=1", 1, False), ("P=4096", 4096, False),
             ("repeated byte, P=64", 64, True)]
 
 
-def load(src: pathlib.Path, prefix: str):
+def load(root: pathlib.Path, prefix: str):
     from repro_torch.kernels import build
-    kl = build.compile_and_load(src, prefix)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if prefix == "xam_search":
-        kl.lib.xam_search_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
-        kl.lib.xam_search_launch.restype = ci
-    else:
-        kl.lib.string_match_launch.argtypes = [vp] * 3 + [ctypes.c_long, ci,
-                                                          vp]
-        kl.lib.string_match_launch.restype = ci
+    src, argtypes = SOURCES[prefix]
+    kl = build.compile_and_load(root / src, prefix)
+    launch = getattr(kl.lib, f"{prefix}_launch")
+    launch.argtypes = argtypes
+    launch.restype = _CI
     return kl
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=pathlib.Path)
+    ap.add_argument("--only", default=",".join(SOURCES))
     ap.add_argument("--json", type=pathlib.Path)
     args = ap.parse_args()
+    kinds = args.only.split(",")
+    if not set(kinds) <= set(SOURCES):
+        ap.error(f"--only takes prefixes of {sorted(SOURCES)}")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import HBM_BYTES_PER_S, CudaTimer, nvidia_smi
+    from chip_smoke import (HBM_BYTES_PER_S, CudaTimer, hop_bytes, hop_case,
+                            nvidia_smi, search_case)
     from repro_torch.apps.stringmatch import make_corpus
     from repro_torch.kernels.build import stream_of
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
     from repro_torch.kernels.string_match.ref import string_match_plain
     from repro_torch.kernels.xam_search.ops import pack_rows
-    from repro_torch.kernels.xam_search.ref import xam_search_plain
+    from repro_torch.kernels.xam_search.ref import (xam_search_multiset_plain,
+                                                    xam_search_plain)
 
-    jobs = {("old", "xam_search"): args.old / FLAT_SRC,
-            ("new", "xam_search"): ROOT / FLAT_SRC,
-            ("old", "string_match"): args.old / SM_SRC,
-            ("new", "string_match"): ROOT / SM_SRC}
+    jobs = [(tree, prefix) for prefix in kinds for tree in ("old", "new")]
+    if "xam_search" not in kinds:
+        jobs.append(("new", "xam_search"))            # the empty kernel
+    roots = {"old": args.old, "new": ROOT}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
-        libs = dict(zip(jobs, ex.map(lambda kv: load(kv[1], kv[0][1]),
-                                     jobs.items())))
+        libs = dict(zip(jobs, ex.map(lambda j: load(roots[j[0]], j[1]),
+                                     jobs)))
     for (tree, name), kl in libs.items():
         print(f"# {tree} {name}: {kl.path.name} built in "
               f"{kl.build_seconds:.2f} s; {kl.ptxas_lines()}", flush=True)
@@ -81,16 +101,23 @@ def main() -> int:
     timer = CudaTimer(torch)
     rows = []
 
-    def turns(shape, fns, n_bytes, reps):
+    def turns(shape, fns, n_bytes, reps, **extra):
         """old, new, new, old; each equal to the plain version first."""
         t = {"old": [], "new": []}
         for tree in ("old", "new", "new", "old"):
             t[tree].append(timer.graph_ms(fns[tree], reps=reps))
         row = {"shape": shape, "old_ms": t["old"], "new_ms": t["new"],
                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
-               "bytes": int(n_bytes), "card": smi}
+               "bytes": int(n_bytes), **extra, "card": smi}
         rows.append(row)
         print(json.dumps(row), flush=True)
+
+    def check(fns, out, want, what):
+        for tree in fns:
+            fns[tree]()
+            torch.cuda.synchronize()
+            if not torch.equal(out[tree], want):
+                raise AssertionError(f"{tree} {what} != plain")
 
     floor = libs[("new", "xam_search")]
     floor.lib.xam_search_floor_launch.argtypes = [ctypes.c_void_p]
@@ -102,7 +129,7 @@ def main() -> int:
     print(json.dumps(rows[-1]), flush=True)
 
     rng = np.random.default_rng(0)
-    for name, (q, r, c) in FLAT_SHAPES:
+    for name, (q, r, c) in FLAT_SHAPES if "xam_search" in kinds else []:
         keys = torch.from_numpy(rng.integers(0, 2, (q, r)).astype(np.int8))
         data = torch.from_numpy(rng.integers(0, 2, (r, c)).astype(np.int8))
         k, m, d = keys.cuda(), torch.ones_like(keys).cuda(), data.cuda()
@@ -118,20 +145,61 @@ def main() -> int:
                     out[tree].data_ptr(), q, r, dd.shape[0], c,
                     int(packed), stream_of(dd)))
             fns = {t: fn(t) for t in ("old", "new")}
-            want = xam_search_plain(k, dd, m)
-            for t in fns:
-                fns[t]()
-                torch.cuda.synchronize()
-                if not torch.equal(out[t], want):
-                    raise AssertionError(f"{t} flat search != plain at {name}")
+            check(fns, out, xam_search_plain(k, dd, m), f"flat search {name}")
             fmt = "packed8" if packed else "int8"
             turns(f"flat search {name} {q} x {r} x {c} ({fmt})", fns,
                   2 * q * r + dd.numel() + q * c, 5 if q > 1 else 100)
         del k, m, d, out
 
-    corpus = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
-    n = corpus.shape[0]
-    for name, p, repeated in SM_CASES:
+    for name, n_sets, n_q in (MULTISET_SHAPES if "xam_multiset" in kinds
+                              else []):
+        for packed in (False, True):
+            ops_, bq, n_bytes, _ = search_case(np, torch, rng, n_sets, 32, 512,
+                                               n_q, packed=packed)
+            keys, masks, planes, valid, bs, live = ops_
+            q, rp = keys.shape[0], planes.shape[1]
+            out = {t: torch.empty(q, dtype=torch.int32, device="cuda")
+                   for t in ("old", "new")}
+
+            def fn(tree, ops_=ops_, out=out, bq=bq, q=q, rp=rp, packed=packed):
+                kl = libs[(tree, "xam_multiset")]
+                ptrs = [x.data_ptr() for x in ops_]
+                return lambda: kl.check(kl.lib.xam_multiset_launch(
+                    *ptrs, out[tree].data_ptr(), q // bq, n_sets, bq, 32, rp,
+                    512, int(packed), stream_of(keys)))
+            fns = {t: fn(t) for t in ("old", "new")}
+            check(fns, out, xam_search_multiset_plain(*ops_, block_q=bq),
+                  f"multi-set search {name}")
+            fmt = "packed8" if packed else "int8"
+            turns(f"multi-set search, {name}: {n_sets} sets x {n_q} queries "
+                  f"({fmt})", fns, n_bytes, 100 if n_q < 1000 else 20)
+            del ops_, out
+
+    for log2_n, n_q, window in (HOP_SHAPES if "hopscotch_lookup" in kinds
+                                else []):
+        ops_ = hop_case(torch, log2_n, window, n_q, seed=window + log2_n)
+        want = hopscotch_lookup_plain(*ops_, window)
+        n_bytes, sector_bytes, _ = hop_bytes(torch, ops_, want, window)
+        out = {t: torch.empty(n_q, dtype=torch.int32, device="cuda")
+               for t in ("old", "new")}
+
+        def fn(tree, ops_=ops_, out=out, window=window, n_q=n_q):
+            kl = libs[(tree, "hopscotch_lookup")]
+            ptrs = [x.data_ptr() for x in ops_]
+            return lambda: kl.check(kl.lib.hopscotch_lookup_launch(
+                *ptrs, out[tree].data_ptr(), ops_[0].shape[0], n_q, window,
+                stream_of(ops_[0])))
+        fns = {t: fn(t) for t in ("old", "new")}
+        check(fns, out, want, f"hopscotch 2^{log2_n} H={window}")
+        turns(f"hopscotch 2^{log2_n} slots, H={window}, Q={n_q}", fns,
+              n_bytes, 20 if n_q <= 8192 else 5,
+              sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3)
+        del ops_, out, want
+
+    if "string_match" in kinds:
+        corpus = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
+        n = corpus.shape[0]
+    for name, p, repeated in SM_CASES if "string_match" in kinds else []:
         text = (torch.full((n,), 97, dtype=torch.uint8, device="cuda")
                 if repeated else corpus)
         pat = text[n // 4 + 1:n // 4 + 1 + p].clone()
@@ -144,14 +212,9 @@ def main() -> int:
                 text.data_ptr(), pat.data_ptr(), out[tree].data_ptr(), n, p,
                 stream_of(text)))
         fns = {t: fn(t) for t in ("old", "new")}
-        want = string_match_plain(text, pat)
-        for t in fns:
-            fns[t]()
-            torch.cuda.synchronize()
-            if not torch.equal(out[t], want):
-                raise AssertionError(f"{t} string match != plain at {name}")
+        check(fns, out, string_match_plain(text, pat), f"string match {name}")
         turns(f"string match 500 MiB, {name}", fns, 2 * n + p, 5)
-        del out, want
+        del out
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": smi, "rows": rows},
