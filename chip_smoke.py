@@ -50,6 +50,18 @@ code 1) on failure:
    ``MonarchDevice()`` at its defaults filled, 256 lookups of stored keys,
    64 of absent keys and a masked search, flat launches equal to its
    ``S set=`` commands; ``dedup_mask`` at the dedup shape.
+7. The memory-system simulator (``repro_torch/core/simulator.py``): the
+   Fig. 9 quick sweep (7 systems x 11 CRONO/NAS apps x 40,000 requests at
+   4096 blocks, two shape families) and the Fig. 11 quick pass (the M=3
+   config over 11 apps, then its calibration and lifetime arithmetic on
+   ``core/lifetime.py``), each family one lane-batched step replayed as
+   a CUDA graph.  Every value under ``speedup_gmean``, ``hit_rate_mean``
+   and ``claims`` of ``benchmarks/baselines/BENCH_fig9.json`` and under
+   ``r_req_calibration``, ``years``, ``ideal_years``,
+   ``ss_mechanism_ratio`` and ``claims`` of ``BENCH_fig11.json`` must be
+   reproduced exactly.  Per family: wall time, µs per step replayed and
+   eager (a 64-step window), kernels per step in the captured graph; and
+   the peak device memory.  The path launches none of the four kernels.
 
 Every path's launch counts are zeroed just before it and read just after.
 The lines before the last are the phase reports, one JSON object with
@@ -1289,6 +1301,298 @@ def monarch_api_phase(np, torch) -> dict:
             "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the Fig. 9 and Fig. 11 quick sweeps through the batched simulator.
+# A short copy of the sweeps' knobs and arithmetic (benchmarks/fig9_cache.py
+# sweep_configs and run, benchmarks/fig11_lifetime.py run, at the quick
+# sizes of repro/bench/harness.py BenchSizes), held to their committed
+# baselines exactly.
+# ---------------------------------------------------------------------------
+SIM_REQUESTS = 40_000               # BenchSizes(quick=True).fig_requests
+SIM_SCALE = 4096                    # 4 GB DRAM -> 4096 blocks (1/16384)
+FIG9_SYSTEMS = ["d_cache", "d_cache_ideal", "monarch_unbound", "monarch_m1",
+                "monarch_m2", "monarch_m3", "monarch_m4"]
+FIG11_S_REAL = 262_144              # 8 GB / (512 blocks x 64 B) supersets
+FIG11_EP_IDEAL_YEARS = 16.72
+FIG11_RESIDUAL_SKEW = 16.72 / 10.22
+EAGER_STEPS = 64                    # the eager window, per family
+GRAPH_REPLAYS = 20                  # replays of one captured graph, timed
+
+
+def fig9_configs(sim) -> dict:
+    cfgs = sim.baseline_configs(SIM_SCALE)
+    for name in list(cfgs):
+        cfgs[name] = dataclasses.replace(cfgs[name], l3_sets=16)
+        if cfgs[name].wear_enabled:
+            cfgs[name] = dataclasses.replace(
+                cfgs[name], t_mww_cycles=(1 << 15) * cfgs[name].m_writes,
+                dc_limit=512, window_budget_blocks=64)
+    return cfgs
+
+
+def fig11_config(sim):
+    return dataclasses.replace(
+        sim.baseline_configs(SIM_SCALE)["monarch_m3"], l3_sets=16,
+        t_mww_cycles=(1 << 15) * 3, dc_limit=12, window_budget_blocks=64)
+
+
+def graph_node_counts(graph) -> dict:
+    """Node counts by type of a captured CUDA graph (kept with
+    ``keep_graph=True``), read through the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
+    counts = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        counts[kinds.get(t.value, "other")] += 1
+    return counts
+
+
+def step_profile(torch, sim, shape, fam, trace_list) -> dict:
+    """One family's step on the card: µs per step eager (a short window)
+    and under CUDA-graph replay, and the captured graph's nodes per step."""
+    import numpy as np
+    k = sim.GRAPH_STEPS
+    cfgs = [cfg for _, cfg in fam for _ in trace_list]
+    dyn = sim.dyn_params(cfgs, "cuda")
+    wear_on = any(cfg.wear_enabled for _, cfg in fam)
+    n = max(EAGER_STEPS, k) + 4
+    addrs = torch.from_numpy(np.stack([a[:n] for _, a, _ in trace_list] *
+                                      len(fam)).astype(np.int32)).cuda()
+    wr = torch.from_numpy(np.stack([w[:n] for _, _, w in trace_list] *
+                                   len(fam))).cuda()
+    step = sim.make_step(shape, dyn, wear_on)
+    st = sim.init_state(shape, "cuda", lanes=len(cfgs))
+    for i in range(4):                                   # warm-up
+        st, _ = step(st, addrs[:, i], wr[:, i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4, 4 + EAGER_STEPS):
+        st, _ = step(st, addrs[:, i], wr[:, i])
+    torch.cuda.synchronize()
+    eager_us = (time.perf_counter() - t0) * 1e6 / EAGER_STEPS
+
+    top = torch.full((len(cfgs),), -2 ** 31, dtype=torch.int32, device="cuda")
+    a_buf = addrs[:, :k].t().contiguous()
+    w_buf = wr[:, :k].t().contiguous()
+    t0 = time.perf_counter()
+    graph = sim.capture_steps(step, st, top, a_buf, w_buf, keep_graph=True)
+    nodes = graph_node_counts(graph)
+    graph.instantiate()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    torch.cuda.synchronize()
+    graph_us = (time.perf_counter() - t0) * 1e6 / (GRAPH_REPLAYS * k)
+    return {"eager_us_per_step": eager_us, "graph_us_per_step": graph_us,
+            "capture_s": capture_s,
+            "kernels_per_step": nodes["kernel"] / k,
+            "graph_nodes": nodes}
+
+
+def run_families(torch, sim, cfgs: dict, trace_list, *, return_state=False):
+    """``simulate_grid`` on the card one shape family at a time, each timed
+    (host clock ending in a synchronisation) and profiled."""
+    families: dict = {}
+    for name, cfg in cfgs.items():
+        families.setdefault(sim.shape_of(cfg), []).append((name, cfg))
+    results, states, reports = {}, {}, []
+    for shape, fam in families.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = sim.simulate_grid(dict(fam), trace_list, device="cuda",
+                                return_state=return_state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        res, st = out if return_state else (out, {})
+        results.update(res)
+        states.update(st)
+        n_req = len(trace_list[0][1])
+        report = {"configs": [name for name, _ in fam],
+                  "lanes": len(fam) * len(trace_list), "steps": n_req,
+                  "graph_steps": sim.GRAPH_STEPS, "wall_s": wall,
+                  "peak_mem_bytes": peak,
+                  "us_per_step_in_sweep": wall * 1e6 / n_req,
+                  **step_profile(torch, sim, shape, fam, trace_list)}
+        log(f"phase 7: family {report['configs']} ({report['lanes']} lanes "
+            f"x {n_req} steps) in {wall:.1f} s; "
+            f"{report['graph_us_per_step']:.1f} µs/step replayed, "
+            f"{report['eager_us_per_step']:.1f} µs/step eager, "
+            f"{report['kernels_per_step']:.1f} kernels/step")
+        reports.append(report)
+    return results, states, reports
+
+
+def fig9_numbers(res, specs, systems) -> dict:
+    """benchmarks/fig9_cache.py run's arithmetic, unchanged."""
+    import numpy as np
+    speedups = {s: [] for s in systems}
+    hitrates = {s: [] for s in systems}
+    writes_saved = []
+    for spec in specs:
+        base = res[("d_cache", spec.name)].total_cycles
+        for s in systems:
+            r = res[(s, spec.name)]
+            speedups[s].append(base / r.total_cycles)
+            hitrates[s].append(r.inpkg_hit_rate)
+        mu = res[("monarch_unbound", spec.name)].stats
+        writes_saved.append(mu["writes_filtered"] / max(mu["l3_evictions"], 1))
+    unb = float(np.mean(speedups["monarch_unbound"]))
+    ideal = float(np.mean(speedups["d_cache_ideal"]))
+    m_means = {m: float(np.mean(speedups[f"monarch_m{m}"]))
+               for m in (1, 2, 3, 4) if f"monarch_m{m}" in systems}
+    return {
+        "speedup_gmean": {
+            s: float(np.exp(np.mean(np.log(np.maximum(speedups[s], 1e-9)))))
+            for s in systems},
+        "hit_rate_mean": {s: float(np.mean(hitrates[s])) for s in systems},
+        "claims": {
+            "C1_unbound_vs_dcache": unb,
+            "C2_unbound_vs_ideal": unb / ideal,
+            "C3_best_m": max(m_means, key=m_means.get),
+            "C4_write_filtered_frac": float(np.mean(writes_saved)),
+        },
+    }
+
+
+def fig11_numbers(results, states, cfg, specs, n_requests) -> dict:
+    """benchmarks/fig11_lifetime.py run's calibration and lifetime
+    arithmetic, unchanged, on the port's ``core/lifetime.py``."""
+    import numpy as np
+    from repro_torch.core import lifetime
+    from repro_torch.core.timing import (CPU_HZ, DEFAULT_ENDURANCE,
+                                         SECONDS_PER_YEAR)
+    snaps = {}
+    for spec in specs:
+        st = states[(cfg.name, spec.name)]
+        snaps[spec.name] = (st.set_writes.cpu().numpy().astype(np.float64),
+                            results[(cfg.name, spec.name)])
+    w_ep, _ = snaps["EP"]
+    epoch_s_ep = (FIG11_EP_IDEAL_YEARS * SECONDS_PER_YEAR
+                  * (w_ep.sum() / FIG11_S_REAL) / DEFAULT_ENDURANCE)
+    r_req = n_requests / epoch_s_ep
+    years_all, ideal_all, ratios = {}, {}, {}
+    for spec in specs:
+        w, res = snaps[spec.name]
+        epoch_seconds = n_requests / r_req
+        rotations = res.stats["rotates"]
+        lt = lifetime.estimate_lifetime(
+            w, epoch_cycles=epoch_seconds * CPU_HZ,
+            rotations_per_epoch=rotations, endurance=DEFAULT_ENDURANCE,
+            intra_set_skew=FIG11_RESIDUAL_SKEW)
+        lt_ss = lifetime.estimate_lifetime(
+            w, epoch_cycles=epoch_seconds * CPU_HZ,
+            rotations_per_epoch=rotations, endurance=DEFAULT_ENDURANCE)
+        scale = FIG11_S_REAL / len(w)
+        years_all[spec.name] = lt.years * scale
+        ideal_all[spec.name] = lt.ideal_years * scale
+        ratios[spec.name] = (lt_ss.years / lt_ss.ideal_years
+                             if lt_ss.ideal_years else 1.0)
+    mn_app = min(years_all, key=years_all.get)
+    return {
+        "r_req_calibration": r_req,
+        "years": years_all,
+        "ideal_years": ideal_all,
+        "ss_mechanism_ratio": ratios,
+        "claims": {
+            "C7_min_years": years_all[mn_app],
+            "C7_min_ideal_years": ideal_all[mn_app],
+            "C7_min_app": mn_app,
+            "C7_ss_mech_ratio_mean": float(np.mean(list(ratios.values()))),
+        },
+    }
+
+
+def held_to_baseline(got: dict, bench: str, keys) -> int:
+    """Every value under ``keys`` of benchmarks/baselines/BENCH_<bench>.json
+    equals the port's, exactly; returns how many were compared."""
+    want = json.loads((ROOT / "benchmarks" / "baselines" /
+                       f"BENCH_{bench}.json").read_text())
+    n = 0
+    for key in keys:
+        w = want[key]
+        g = got[key]
+        pairs = w.items() if isinstance(w, dict) else [(None, w)]
+        for sub, value in pairs:
+            mine = g[sub] if sub is not None else g
+            if mine != value:
+                raise AssertionError(
+                    f"{bench} {key}/{sub}: port {mine!r} != baseline "
+                    f"{value!r}")
+            n += 1
+    return n
+
+
+def simulator_phase(torch) -> dict:
+    """Fig. 9 quick (7 systems x 11 apps, 2 shape families) and Fig. 11
+    quick (11 apps through the M=3 config) on the card, with CUDA-graph
+    replay; every checked baseline value must be reproduced."""
+    n_requests = SIM_REQUESTS
+    from repro_torch.core import simulator as sim
+    from repro_torch.data import traces
+
+    t0 = time.perf_counter()
+    all_cfgs = fig9_configs(sim)
+    cfgs = {s: all_cfgs[s] for s in FIG9_SYSTEMS}
+    specs = traces.crono_nas_specs(all_cfgs["monarch_unbound"].inpkg_blocks,
+                                   n_requests)
+    trace_list = [(spec.name, *traces.generate(spec)) for spec in specs]
+    gen9_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res9, _, fam9 = run_families(torch, sim, cfgs, trace_list)
+    sweep9_s = time.perf_counter() - t0
+    fig9 = fig9_numbers(res9, specs, FIG9_SYSTEMS)
+
+    t0 = time.perf_counter()
+    cfg11 = fig11_config(sim)
+    specs11 = traces.crono_nas_specs(cfg11.inpkg_blocks, n_requests)
+    traces11 = [(spec.name, *traces.generate(spec)) for spec in specs11]
+    gen11_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res11, st11, fam11 = run_families(torch, sim, {cfg11.name: cfg11},
+                                      traces11, return_state=True)
+    sweep11_s = time.perf_counter() - t0
+    fig11 = fig11_numbers(res11, st11, cfg11, specs11, n_requests)
+    peak = max(f["peak_mem_bytes"] for f in fam9 + fam11)
+
+    compared = held_to_baseline(
+        fig9, "fig9", ["speedup_gmean", "hit_rate_mean", "claims"])
+    compared += held_to_baseline(
+        fig11, "fig11", ["r_req_calibration", "years", "ideal_years",
+                         "ss_mechanism_ratio", "claims"])
+    log(f"phase 7: {compared} Fig. 9/11 baseline values reproduced exactly")
+    log(f"phase 7: Fig. 9 sweep {sweep9_s:.1f} s, Fig. 11 sweep "
+        f"{sweep11_s:.1f} s, peak device memory of one family's "
+        f"simulate_grid {peak / 2 ** 20:.1f} MiB")
+    return {"requests": n_requests, "scale_blocks": SIM_SCALE,
+            "baseline_values_equal": compared,
+            "trace_gen_s": gen9_s + gen11_s,
+            "fig9_sweep_s": sweep9_s, "fig11_sweep_s": sweep11_s,
+            "peak_mem_bytes": peak, "families": fam9 + fam11,
+            "fig9": fig9, "fig11": fig11}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1311,7 +1615,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, python {sys.version.split()[0]}")
+        f"{torch.version.cuda}, numpy {np.__version__}, python "
+        f"{sys.version.split()[0]}")
     builds = build_all()
 
     max_err = check_search_kernel(np, torch)
@@ -1332,6 +1637,11 @@ def main() -> int:
     strings = stringmatch_phase(np, torch, corpus_t)
     api = monarch_api_phase(np, torch)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    t0 = time.perf_counter()
+    simulated = simulator_phase(torch)
+    simulated["launches"] = read_counts()
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     path_launches = {
         "xam_search_multiset": serve_counts["xam_search_multiset"],
@@ -1388,7 +1698,8 @@ def main() -> int:
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
                       "hashtable": table, "stringmatch": strings,
-                      "monarch_api": api, "card": smi}), flush=True)
+                      "monarch_api": api, "simulator": simulated,
+                      "card": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

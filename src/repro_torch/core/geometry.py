@@ -1,5 +1,17 @@
-"""Set-axis shard arithmetic and the §8 rotary offsets (port of the parts
-of ``repro/core/geometry.py`` the serving path uses)."""
+"""Monarch address geometry (paper §6, Figures 4 and 7) — port of
+``repro/core/geometry.py`` over torch tensors.
+
+Hierarchy (Table 3, 8 GB Monarch):
+
+    8 vaults x 64 banks/vault x 512 supersets/bank x 8 sets/superset
+      x 64 rows/set, one row = one 64 B block (512 bits across 8 subarrays).
+
+Supersets are 8x8 grids of 64x64 XAM subarrays; the subarray at (i, j)
+belongs to set k = (j - i) % 8 (diagonal arrangement, Fig. 4).  The §8
+rotary offsets rotate vault/bank/superset/set IDs by distinct primes on
+every rotate signal.  The multi-partition helpers (``shard_of_set``,
+``shard_roll_plan``) are not ported yet: the port runs one partition.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -7,6 +19,74 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+
+BLOCK_BYTES = 64
+SET_WAYS = 512  # columns searchable per set == cache associativity
+
+
+@dataclasses.dataclass(frozen=True)
+class MonarchGeometry:
+    """Table 3's stated 8 GB stack.  Its listed fields multiply to 4 GB;
+    the reference keeps the stated capacity by using 512 supersets/bank,
+    and so does the port."""
+    n_vaults: int = 8
+    banks_per_vault: int = 64
+    supersets_per_bank: int = 512
+    sets_per_superset: int = 8
+    rows_per_set: int = 64
+    subarray_rows: int = 64
+    subarray_cols: int = 64
+    superset_grid: int = 8  # 8x8 subarrays
+
+    @property
+    def blocks_per_set(self) -> int:
+        return self.rows_per_set
+
+    @property
+    def blocks_per_superset(self) -> int:
+        return self.sets_per_superset * self.rows_per_set  # 512
+
+    @property
+    def total_supersets(self) -> int:
+        return self.n_vaults * self.banks_per_vault * self.supersets_per_bank
+
+    @property
+    def total_blocks(self) -> int:
+        return self.total_supersets * self.blocks_per_superset
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.total_blocks * BLOCK_BYTES
+
+    def scaled(self, factor: int) -> "MonarchGeometry":
+        """Uniformly scale down the superset count for simulation (ratios
+        preserved; per-set geometry untouched)."""
+        if factor < 1:
+            raise ValueError(f"scale factor {factor} must be >= 1")
+        ss = max(self.supersets_per_bank // factor, 1)
+        return dataclasses.replace(self, supersets_per_bank=ss)
+
+
+GEOM_8GB = MonarchGeometry()
+
+
+# Diagonal set selection (Fig. 4).
+
+def set_of_subarray(i, j, grid: int = 8):
+    """Set id of the subarray at superset grid position (row i, col j)."""
+    return (j - i) % grid
+
+
+def subarrays_of_set(k: int, grid: int = 8):
+    """The 8 (i, j) positions selected for set k — one per grid row."""
+    return [(i, (i + k) % grid) for i in range(grid)]
+
+
+def port_select(k: int, mode_column_in: bool, grid: int = 8):
+    """Which port (row/column) each selected subarray drives, per the port
+    selector's mode latch: ``[(i, j, port)]``, port in {"col", "row"}."""
+    port = "col" if mode_column_in else "row"
+    return [(i, j, port) for (i, j) in subarrays_of_set(k, grid)]
 
 
 def sets_per_shard(n_sets: int, n_shards: int) -> int:
@@ -40,9 +120,13 @@ class RotaryOffsets:
     rotate_count: torch.Tensor
 
 
-def zero_offsets(device: str | torch.device = "cuda") -> RotaryOffsets:
+def zero_offsets(device: str | torch.device = "cuda",
+                 lanes: int | None = None) -> RotaryOffsets:
+    """Fresh offsets: int32 scalars, or ``(lanes,)`` vectors for a state
+    with a leading lane axis (the batched simulator's)."""
     device = resolve_device(device)
-    z = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    shape = () if lanes is None else (lanes,)
+    z = lambda: torch.zeros(shape, dtype=torch.int32, device=device)
     return RotaryOffsets(z(), z(), z(), z(), z())
 
 
@@ -58,3 +142,77 @@ def apply_rotate(off: RotaryOffsets) -> RotaryOffsets:
         set_=(off.set_ + ROTATE_PRIMES["set"]).to(torch.int32),
         rotate_count=rc.to(torch.int32),
     )
+
+
+# Address decomposition: linear block address -> physical coordinates.
+# Bit layout (low to high): set-row | set | superset | bank | vault.
+
+@dataclasses.dataclass(frozen=True)
+class BlockCoord:
+    vault: torch.Tensor
+    bank: torch.Tensor
+    superset: torch.Tensor
+    set_: torch.Tensor
+    row: torch.Tensor
+
+    def flat_superset(self, g: MonarchGeometry) -> torch.Tensor:
+        return (self.vault * g.banks_per_vault
+                + self.bank) * g.supersets_per_bank + self.superset
+
+
+def decompose(block_addr, g: MonarchGeometry,
+              off: RotaryOffsets | None = None) -> BlockCoord:
+    """int32 coordinates of ``block_addr`` (floor ``%``/``//`` on int32,
+    as the reference), rotated by ``off`` when given."""
+    a = torch.as_tensor(block_addr).to(torch.int32)
+    row = a % g.rows_per_set
+    a = a // g.rows_per_set
+    set_ = a % g.sets_per_superset
+    a = a // g.sets_per_superset
+    superset = a % g.supersets_per_bank
+    a = a // g.supersets_per_bank
+    bank = a % g.banks_per_vault
+    a = a // g.banks_per_vault
+    vault = a % g.n_vaults
+    if off is not None:
+        vault = (vault + off.vault) % g.n_vaults
+        bank = (bank + off.bank) % g.banks_per_vault
+        superset = (superset + off.superset) % g.supersets_per_bank
+        set_ = (set_ + off.set_) % g.sets_per_superset
+    to32 = lambda x: x.to(torch.int32)
+    return BlockCoord(to32(vault), to32(bank), to32(superset), to32(set_),
+                      to32(row))
+
+
+def compose(c: BlockCoord, g: MonarchGeometry) -> torch.Tensor:
+    """Inverse of :func:`decompose` without offsets (int32)."""
+    a = c.vault.to(torch.int32)
+    a = a * g.banks_per_vault + c.bank
+    a = a * g.supersets_per_bank + c.superset
+    a = a * g.sets_per_superset + c.set_
+    a = a * g.rows_per_set + c.row
+    return a
+
+
+# Fig. 7: coordinated RAM <-> CAM mapping for cache mode.  Every RAM
+# superset (512 blocks) corresponds to one CAM set (512 tag columns); the
+# RAM bank ID supplies the CAM set / bank / key bits.
+
+@dataclasses.dataclass(frozen=True)
+class CamCoord:
+    bank: torch.Tensor     # CAM bank within the vault's CAM partition
+    set_: torch.Tensor     # set within the CAM superset
+    key_id: torch.Tensor   # which tag of the column (0: low half, 1: high)
+
+
+def ram_to_cam(ram_bank, g: MonarchGeometry,
+               n_cam_banks: int = 2) -> CamCoord:
+    """Map a RAM bank id to the (cam_bank, set, key_id) holding its tags:
+    low bits pick the set, the next bit the CAM bank, the top the key."""
+    b = torch.as_tensor(ram_bank).to(torch.int32)
+    set_ = b % g.sets_per_superset
+    rest = b // g.sets_per_superset
+    cam_bank = rest % n_cam_banks
+    key_id = rest // n_cam_banks
+    return CamCoord(cam_bank.to(torch.int32), set_.to(torch.int32),
+                    key_id.to(torch.int32))

@@ -10,6 +10,13 @@ The cycle domain is int32 throughout, exactly as in the reference: every
 per-superset stamp, counter and window field is an int32 tensor, and
 every operand is cast to int32 before it meets one (an int64 operand
 would widen silently and change the wrap and rebase behaviour).
+
+A state may carry a leading lane axis ``G`` (the batched simulator's:
+``(G, S)`` rows, ``(G,)`` counters and offsets, built by
+``init_state(cfg, device, lanes=G)``).  :func:`is_locked` and
+:func:`record_write` then take ``(G,)`` supersets, flags and cycles and
+``cfg`` fields that are scalars or ``(G,)`` tensors, through the same
+code that serves the single state.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import geometry
+from repro_torch.core import geometry, lanes
 from repro_torch.core.timing import CPU_HZ, t_mww_seconds
 from repro_torch.device import resolve_device
 
@@ -110,17 +117,19 @@ class WearState:
     total_flushed: torch.Tensor  # scalar int32 — dirty supersets flushed
 
 
-def init_state(cfg: WearConfig,
-               device: str | torch.device = "cuda") -> WearState:
+def init_state(cfg: WearConfig, device: str | torch.device = "cuda",
+               lanes: int | None = None) -> WearState:
+    """Fresh state; ``lanes=G`` gives every field a leading lane axis."""
     device = resolve_device(device)
-    s = cfg.n_supersets
+    g = () if lanes is None else (lanes,)
+    s = g + (cfg.n_supersets,)
     z = lambda shape, dt=_I32: torch.zeros(shape, dtype=dt, device=device)
     return WearState(
-        swt_w=z((s,), torch.int8), swt_d=z((s,), torch.int8),
-        write_counter=z(()), superset_counter=z(()), dirty_counter=z(()),
-        offsets=geometry.zero_offsets(device),
-        window_writes=z((s,)), window_start=z((s,)), locked_until=z((s,)),
-        total_rotates=z(()), total_flushed=z(()),
+        swt_w=z(s, torch.int8), swt_d=z(s, torch.int8),
+        write_counter=z(g), superset_counter=z(g), dirty_counter=z(g),
+        offsets=geometry.zero_offsets(device, lanes),
+        window_writes=z(s), window_start=z(s), locked_until=z(s),
+        total_rotates=z(g), total_flushed=z(g),
     )
 
 
@@ -154,9 +163,15 @@ def rotate_signal(state: WearState, cfg) -> torch.Tensor:
     return wr_signal(state, cfg) | wc | dc
 
 
+def _rows(state: WearState, superset) -> tuple:
+    """Index of ``superset``'s row in the per-superset fields (prefixed
+    with the lane index for a lane-batched state)."""
+    return lanes.index(state.locked_until, 1, superset)
+
+
 def is_locked(state: WearState, superset, cycle) -> torch.Tensor:
-    s = torch.as_tensor(superset, device=state.locked_until.device).long()
-    return _i32(cycle, state.locked_until) < state.locked_until[s]
+    return (_i32(cycle, state.locked_until)
+            < state.locked_until[_rows(state, superset)])
 
 
 def _window_now(state: WearState, cfg, superset, cycle):
@@ -188,9 +203,11 @@ def record_write(state: WearState, cfg, superset, makes_dirty, cycle):
     Returns ``(new_state, rotated, flushed)``.  Handles, in order: t_MWW
     window rollover, budget accounting + lock, SWT/counter updates,
     rotate detection + offset bump + SWT reset (the reference's
-    ``lax.cond`` becomes a ``torch.where`` over every field)."""
+    ``lax.cond`` becomes a ``torch.where`` over every field).  Over a
+    lane-batched state every operand is ``(G,)`` and so are ``rotated``
+    and ``flushed``: ``jax.vmap`` of the reference's function."""
     dev = state.window_start.device
-    s = torch.as_tensor(superset, device=dev).long()
+    s = _rows(state, superset)
     cycle = _i32(cycle, state.window_start)
     dirty = torch.as_tensor(makes_dirty, device=dev).to(torch.bool)
 
@@ -200,21 +217,17 @@ def record_write(state: WearState, cfg, superset, makes_dirty, cycle):
     over = w_writes > _i32(cfg.window_write_budget, w_writes)
     locked_until = torch.where(over, w_start + win, state.locked_until[s])
 
-    window_writes = state.window_writes.clone()
-    window_writes[s] = w_writes
-    window_start = state.window_start.clone()
-    window_start[s] = w_start
-    locked = state.locked_until.clone()
-    locked[s] = locked_until
+    window_writes = lanes.put(state.window_writes, s, w_writes)
+    window_start = lanes.put(state.window_start, s, w_start)
+    locked = lanes.put(state.locked_until, s, locked_until)
 
     first_write = state.swt_w[s] == 0
     superset_counter = state.superset_counter + first_write.to(_I32)
-    swt_w = state.swt_w.clone()
-    swt_w[s] = 1
+    swt_w = lanes.put(state.swt_w, s, 1)
     newly_dirty = (state.swt_d[s] == 0) & dirty
     dirty_counter = state.dirty_counter + newly_dirty.to(_I32)
-    swt_d = state.swt_d.clone()
-    swt_d[s] = torch.maximum(swt_d[s], dirty.to(torch.int8))
+    swt_d = lanes.put(state.swt_d, s,
+                      torch.maximum(state.swt_d[s], dirty.to(torch.int8)))
     write_counter = state.write_counter + 1
 
     mid = WearState(
@@ -226,24 +239,20 @@ def record_write(state: WearState, cfg, superset, makes_dirty, cycle):
         total_rotates=state.total_rotates, total_flushed=state.total_flushed,
     )
     rot = rotate_signal(mid, cfg)
-    flushed = torch.where(rot, swt_d.to(_I32).sum(), 0).to(_I32)
+    flushed = torch.where(rot, swt_d.to(_I32).sum(-1), 0).to(_I32)
 
-    pick = lambda new, old: torch.where(rot, new, old)
-    off = mid.offsets
-    rotated_off = geometry.apply_rotate(off)
+    zero = lambda x: torch.where(lanes.bcast(rot, x), 0, x)
     new_state = WearState(
-        swt_w=pick(torch.zeros_like(swt_w), swt_w),
-        swt_d=pick(torch.zeros_like(swt_d), swt_d),
-        write_counter=pick(torch.zeros_like(write_counter), write_counter),
-        superset_counter=pick(torch.zeros_like(superset_counter),
-                              superset_counter),
-        dirty_counter=pick(torch.zeros_like(dirty_counter), dirty_counter),
-        offsets=geometry.RotaryOffsets(*(
-            pick(getattr(rotated_off, f.name), getattr(off, f.name))
-            for f in dataclasses.fields(off))),
+        swt_w=zero(swt_w), swt_d=zero(swt_d),
+        write_counter=zero(write_counter),
+        superset_counter=zero(superset_counter),
+        dirty_counter=zero(dirty_counter),
+        offsets=lanes.pick(rot, geometry.apply_rotate(mid.offsets),
+                           mid.offsets),
         window_writes=window_writes, window_start=window_start,
         locked_until=locked,
-        total_rotates=pick(mid.total_rotates + 1, mid.total_rotates),
+        total_rotates=torch.where(rot, mid.total_rotates + 1,
+                                  mid.total_rotates),
         total_flushed=(mid.total_flushed + flushed).to(_I32),
     )
     return new_state, rot, flushed
