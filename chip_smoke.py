@@ -26,6 +26,24 @@ code 1) on failure:
    logits outside rtol 1e-2/atol 5e-2) and to the greedy margin rule —
    and per-stage times.  Before it, the same comparison at full width and
    4 layers is held to rtol 1e-2/atol 5e-2 itself.
+3b. gemma3's local/global stack.  Phase 3's parameters and engine are
+   freed first and the card's allocated memory must be back to what it
+   was before phase 3.  At full width and 8 layers (one [local x 5,
+   global] group plus two local remainder blocks): 2 x 1056 prompt
+   tokens, then 16 greedy decode steps at positions 1056-1071, which
+   wrap the 1024-slot rings; each step's logits against a fresh full
+   prefill over prompt + decoded tokens, held to rtol 1e-2/atol 5e-2;
+   resumed prefill (1024 cached tokens) against full prefill, held the
+   same way; the unembedding's peak memory, chunked and as one float32
+   copy.  Then gemma3-27b at full width and depth (62 layers, 28.42 B
+   bf16 parameters) behind ``launch/httpd.build_frontend`` on 127.0.0.1:
+   8 POST /v1/generate of 2 x 96 tokens sharing a 48-token prefix from
+   one client, /healthz, /stats and the graceful drain; multi-set
+   launches equal the index's searches, the index hits and resumes, and
+   the drain leaves every chunk resident.  The same requests through
+   ``run_request_loop`` on a fresh index over the same parameters must
+   give the edge's greedy tokens wherever the top-1/top-2 gap exceeds
+   0.1.  Per-stage times beside the decode's weight-read bound.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -540,6 +558,352 @@ def serve_phase(np, torch) -> dict:
                              "floor_outside_tol": over(rows, b),
                              "decoded_agree": agree}}
 
+
+# ---------------------------------------------------------------------------
+# Phase 3b: gemma3-27b's local/global stack, served through the HTTP edge.
+# ---------------------------------------------------------------------------
+
+GEMMA_RING_LAYERS = 8              # one [local x 5, global] group + rem0, rem1
+GEMMA_RING_PROMPT = 1056           # > the 1024-token window: the ring wraps
+GEMMA_RING_PREFIX = 1024           # resumed-prefill check: 64 chunks cached
+GEMMA_RING_STEPS = 16              # decode positions 1056-1071
+EDGE_REQUESTS = 8                  # POST /v1/generate, 2 x 96 tokens each
+EDGE_ARGV = ["--arch", "gemma3-27b", "--device", "cuda", "--host",
+             "127.0.0.1", "--port", "0", "--prompt-len", "96",
+             "--decode-tokens", "8", "--admit-after-reads", "0"]
+
+
+def free_card(torch) -> int:
+    """Collect what the last phase left and empty the caching
+    allocator's free blocks; returns the device memory still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def greedy_margin_agree(got, want, gaps) -> bool:
+    """Row by row, tokens equal until the first step whose reference
+    top-1/top-2 gap is within 0.1; a row is not compared past a permitted
+    divergence."""
+    for r in range(want.shape[0]):
+        for t in range(want.shape[1]):
+            if got[r, t] != want[r, t]:
+                if gaps[r, t] > 0.1:
+                    return False
+                break
+    return True
+
+
+def top2_gap(np, logits):
+    top = np.sort(logits, axis=-1)[..., -2:]
+    return top[..., 1] - top[..., 0]
+
+
+def gemma_ring_check(np, torch) -> dict:
+    """gemma3-27b at full width and ``GEMMA_RING_LAYERS`` layers: prefill
+    2 x 1056 tokens, decode 16 greedy tokens (positions 1056-1071 wrap the
+    1024-slot rings), each step's logits held to RTOL/ATOL against the
+    last-token logits of a fresh full prefill over prompt + decoded
+    tokens (the windowed prefill does not use the ring).  Then resumed
+    prefill (1024 tokens from the prefix KV) against full prefill, held
+    to RTOL/ATOL and the greedy margin rule; and the peak device memory
+    of one unembedding at the 262,144-token vocabulary, chunked as the
+    port does it and as one float32 copy of the weight."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers, transformer
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch("gemma3-27b"),
+                              n_layers=GEMMA_RING_LAYERS)
+    group, n_groups, rem = cfg.scan_groups()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    if (n_groups, len(group), len(rem)) != (1, 6, 2) or \
+            sorted(params) != ["embed", "final_ln", "groups", "rem0", "rem1"]:
+        raise AssertionError(f"unexpected 8-layer tree: {sorted(params)}")
+    rng = np.random.default_rng(11)
+    s0, n = GEMMA_RING_PROMPT, GEMMA_RING_STEPS
+    max_seq = s0 + n
+    seq = rng.integers(1, cfg.vocab_size, (2, s0))
+    logits, cache = transformer.prefill(params, cfg, {"tokens": seq},
+                                        max_seq)
+    ring = cache["groups"]["b0"]["k"]
+    if ring.shape[2] != cfg.sliding_window:
+        raise AssertionError(f"local ring of {ring.shape[2]} slots")
+    d_max, out_max = 0.0, 0.0
+    for t in range(n):
+        nxt = logits.argmax(-1).cpu().numpy()[:, None]
+        seq = np.concatenate([seq, nxt], axis=1)
+        logits, cache = transformer.decode_step(params, cfg, nxt, cache,
+                                                s0 + t)
+        full, _ = transformer.prefill(params, cfg, {"tokens": seq}, max_seq)
+        a, b = logits.float().cpu().numpy(), full.float().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"non-finite decode logits at step {t}")
+        d_max = max(d_max, float(np.abs(a - b).max()))
+        out_max = max(out_max, float(
+            (np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean()))
+    log(f"ring decode at full width, {GEMMA_RING_LAYERS} layers, positions "
+        f"{s0}-{s0 + n - 1} over {cfg.sliding_window}-slot rings vs full "
+        f"prefill: logits max |diff| {d_max:.6f}, {out_max:.6f} outside "
+        f"rtol {RTOL}/atol {ATOL}")
+    if out_max > 0:
+        raise AssertionError(f"ring decode vs full prefill exceeds rtol "
+                             f"{RTOL}/atol {ATOL}: max |diff| {d_max}")
+
+    # Resumed against full prefill over a prompt sharing 1024 tokens.
+    p = GEMMA_RING_PREFIX
+    first = seq[:, :s0]
+    second = np.concatenate([first[:, :p], rng.integers(
+        1, cfg.vocab_size, (2, s0 - p))], axis=1)
+    _, _, kv = transformer.prefill(params, cfg, {"tokens": first}, max_seq,
+                                   return_kv=True)
+    prefix_kv = tree_map(lambda a: a[..., :p, :, :].contiguous(), kv)
+    resumed, cache_r = transformer.prefill(
+        params, cfg, {"tokens": second[:, p:]}, max_seq, prefix_kv=prefix_kv)
+    full, cache_f = transformer.prefill(params, cfg, {"tokens": second},
+                                        max_seq)
+    a, b = resumed.float().cpu().numpy(), full.float().cpu().numpy()
+    d_res = float(np.abs(a - b).max())
+    res_out = float((np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean())
+    d_cache = max(float((x.float() - y.float()).abs().max()) for x, y in
+                  zip(tree_leaves(cache_r), tree_leaves(cache_f)))
+    cache_ok = all(torch.allclose(x.float(), y.float(), rtol=RTOL, atol=ATOL)
+                   for x, y in zip(tree_leaves(cache_r),
+                                   tree_leaves(cache_f)))
+    clear = top2_gap(np, b) > 0.1
+    log(f"resumed ({p} tokens from the prefix KV) vs full prefill at "
+        f"{GEMMA_RING_LAYERS} layers: logits max |diff| {d_res:.6f}, "
+        f"{res_out:.6f} outside; cache max |diff| {d_cache:.6f}")
+    if res_out > 0 or not cache_ok:
+        raise AssertionError(f"resumed vs full prefill at "
+                             f"{GEMMA_RING_LAYERS} layers exceeds rtol/atol")
+    if not (a.argmax(-1) == b.argmax(-1))[clear].all():
+        raise AssertionError("resumed and full prefill disagree on a greedy "
+                             "token whose top-1/top-2 gap exceeds 0.1")
+
+    # The unembedding's transient: chunked (the port) and one float32
+    # copy of the whole weight (before this slice).
+    x = torch.randn((2, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    w = params["embed"]["unembed"]
+    peak_chunked = added_peak_bytes(
+        torch, lambda: layers.unembed_logits(params["embed"], x))
+    peak_copy = added_peak_bytes(
+        torch, lambda: torch.einsum("bsd,dv->bsv", x.float(), w.float()))
+    log(f"unembedding at vocab {cfg.vocab_size}: peak added "
+        f"{peak_chunked / 1e9:.4f} GB chunked, {peak_copy / 1e9:.4f} GB "
+        "as one float32 copy")
+    del params, cache, kv, prefix_kv, cache_r, cache_f, ring
+    return {"layers": GEMMA_RING_LAYERS, "window": cfg.sliding_window,
+            "decode_positions": [s0, s0 + n - 1],
+            "decode_vs_full_max_abs_diff": d_max,
+            "decode_vs_full_outside_tol": out_max,
+            "resumed_max_abs_diff": d_res, "resumed_outside_tol": res_out,
+            "resumed_cache_max_abs_diff": d_cache,
+            "unembed_peak_bytes_chunked": peak_chunked,
+            "unembed_peak_bytes_float32_copy": peak_copy}
+
+
+def http_json(method: str, host: str, port: int, path: str, body=None):
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    conn.request(method, path, body=None if body is None else json.dumps(body))
+    resp = conn.getresponse()
+    doc = json.loads(resp.read())
+    conn.close()
+    return resp.status, doc
+
+
+def edge_phase(np, torch, smi: str) -> dict:
+    """gemma3-27b at full width and depth (62 layers, bf16, seeded random
+    weights on the card) booted behind ``launch/httpd.build_frontend``
+    on 127.0.0.1, port 0: 8 POST /v1/generate of 2 x 96 tokens sharing a
+    48-token prefix from one client, then /healthz, /stats and the
+    graceful drain.  The launch counts are zeroed just before the boot
+    and read after the drain.  The same 8 requests are then replayed
+    through ``run_request_loop`` on a fresh index over the same
+    parameters (greedy tokens equal under the margin rule), and the
+    per-stage times are taken on that engine."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.xam_search import ops
+    from repro_torch.launch import httpd
+    from repro_torch.launch.serve import build_model_fns, run_request_loop
+    from repro_torch.models import transformer
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serve.admit_queue import AdmitQueue
+    from repro_torch.serve.kv_index import (KVIndexConfig, KVSlabStore,
+                                            MonarchKVIndex)
+
+    cfg = get_arch("gemma3-27b")
+    dims = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.sliding_window)
+    if dims != (62, 5376, 32, 16, 128, 21504, 262144, 1024):
+        raise AssertionError(f"not gemma3-27b at full width: {dims}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = transformer.param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    if sorted(params["groups"]) != [f"b{i}" for i in range(6)] or \
+            params["groups"]["b0"]["attn"]["wq"].shape[0] != 10 or \
+            "rem1" not in params or "rem2" in params:
+        raise AssertionError("gemma3-27b's tree is not 10 x b0..b5 + rem0/1")
+    log(f"gemma3-27b: {n_params / 1e9:.4f} B params ({weight_bytes / 1e9:.3f}"
+        f" GB bf16) drawn on the card in {init_s:.1f} s")
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, cfg.vocab_size, 48)
+    batches = [np.concatenate([np.tile(prefix, (2, 1)), rng.integers(
+        1, cfg.vocab_size, (2, 48))], axis=1).astype(np.int32)
+        for _ in range(EDGE_REQUESTS)]
+
+    args = httpd.build_parser().parse_args(EDGE_ARGV)
+    zero_counts()
+    frontend, admit_q = httpd.build_frontend(args, params=params)
+    idx = admit_q.index
+    frontend.start()
+    host, port = frontend.address
+    answers, latency_ms = [], []
+    for toks in batches:
+        t0 = time.perf_counter()
+        status, doc = http_json("POST", host, port, "/v1/generate",
+                                {"tokens": toks.tolist()})
+        latency_ms.append((time.perf_counter() - t0) * 1e3)
+        if status != 200:
+            raise AssertionError(f"POST /v1/generate answered {status}: {doc}")
+        answers.append(doc)
+    h_status, health = http_json("GET", host, port, "/healthz")
+    s_status, stats = http_json("GET", host, port, "/stats")
+    if h_status != 200 or health["status"] != "ok" or s_status != 200:
+        raise AssertionError(f"/healthz {h_status}, /stats {s_status}")
+    t0 = time.perf_counter()
+    frontend.shutdown()                  # drain router + admissions
+    admit_q.close()
+    drain_s = time.perf_counter() - t0
+    launches = read_counts()
+    s = idx.stats
+    served = frontend.router.stats
+    edge_tokens = [np.asarray(a["tokens"]) for a in answers]
+    if launches["xam_search_multiset"] != s.searches or s.searches == 0:
+        raise AssertionError(f"multi-set launches {launches} != "
+                             f"stats.searches {s.searches}")
+    if idx.hit_rate <= 0 or sum(a["resumed_chunks"] for a in answers[1:]) <= 0:
+        raise AssertionError("no index hits or no resumed chunks")
+    if served.completed != EDGE_REQUESTS or served.errors:
+        raise AssertionError(f"router: {served}")
+    if s.throttled:
+        raise AssertionError(f"{s.throttled} admissions throttled")
+    for tk in edge_tokens:
+        if tk.shape != (2, 8) or tk.min() < 0 or tk.max() >= cfg.vocab_size:
+            raise AssertionError(f"decoded tokens {tk.shape}")
+    # The drain completed every admission: nothing pending, every chunk
+    # of every request resident with its slab.
+    report = idx.slab_lockstep_report()
+    chunks = {int(f) for t in batches for f in idx.fingerprints(t).ravel()}
+    if admit_q.pending() or report["missing_slabs"] or \
+            report["orphan_slabs"] or not chunks <= set(idx.slot_of):
+        raise AssertionError(f"drain lost admissions: {report}")
+    log(f"edge: {EDGE_REQUESTS} requests at gemma3-27b full depth, hit rate "
+        f"{idx.hit_rate:.3f}, {s.searches} searches == "
+        f"{launches['xam_search_multiset']} launches, resumed chunks "
+        f"{[a['resumed_chunks'] for a in answers]}, drain {drain_s:.2f} s, "
+        f"/stats hit rate {stats['index']['hit_rate']}")
+
+    # The same requests through run_request_loop on a fresh index.
+    kv_cfg = KVIndexConfig(n_sets=8, m_writes=args.m_writes,
+                           clock=args.wear_clock, fingerprint="prefix",
+                           admit_after_reads=0)
+    idx2 = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore(), device="cuda")
+    q2 = AdmitQueue(idx2)
+    max_seq = args.prompt_len + args.decode_tokens
+    prefill_fn, _, eng = build_model_fns(
+        params, cfg, max_seq=max_seq, decode_tokens=8, index=idx2,
+        resume=True)
+    gaps = []
+
+    def decode_fn(toks, result):
+        st = result.state
+        logits, cache, pos = st["logits"], st["cache"], st["pos"]
+        out, g = [], []
+        for t in range(8):
+            lg = logits.float().cpu().numpy()
+            out.append(lg.argmax(-1))
+            g.append(top2_gap(np, lg))
+            if t < 7:
+                nxt = torch.from_numpy(out[-1][:, None]).cuda()
+                _, logits, cache = eng._decode(params, cache, nxt, pos + t)
+        gaps.append(np.stack(g, 1))
+        return np.stack(out, 1).astype(np.int32)
+
+    recs = run_request_loop(q2, batches, prefill_fn=prefill_fn,
+                            decode_fn=decode_fn)
+    q2.flush()
+    for i, (rec, tk) in enumerate(zip(recs, edge_tokens)):
+        if not greedy_margin_agree(tk, rec.decoded, gaps[i]):
+            raise AssertionError(f"request {i}: the edge's greedy tokens "
+                                 "differ from the replay's where the "
+                                 "top-1/top-2 gap exceeds 0.1")
+    agree = float(np.mean([(tk == r.decoded).mean()
+                           for tk, r in zip(edge_tokens, recs)]))
+
+    # Per-stage times on the replay's engine (host clock, each ending in
+    # a synchronisation).
+    toks = batches[-1]
+    hits = idx2.lookup(toks)
+    full = eng.prefill(toks, None)
+    resumed_timed = eng.prefill(toks, hits).resumed_chunks
+    fresh = np.random.default_rng(5).integers(1, 2 ** 32, (16, 12),
+                                              dtype=np.uint32)
+    it = iter(fresh)
+    times = {
+        "lookup_ms": host_ms(torch, lambda: idx2.lookup(toks), 10),
+        "prefill_resumed_ms": host_ms(torch, lambda: eng.prefill(toks, hits),
+                                      3),
+        "prefill_full_ms": host_ms(torch, lambda: eng.prefill(toks, None), 3),
+        "decode_ms_per_token": host_ms(
+            torch, lambda: eng.decode(full, 8), 3) / 8,
+        "admit_ms": host_ms(torch, lambda: idx2.admit_fps(next(it)), 10),
+        "edge_latency_ms": latency_ms,
+        "edge_latency_ms_median": statistics.median(latency_ms),
+        "edge_server_ms": [a["server_ms"] for a in answers],
+        "resumed_chunks_timed": resumed_timed,
+        "init_s": init_s, "drain_s": drain_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    q2.close()
+    log("edge stage times (" + smi + "): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float)))
+    return {"launches": launches["xam_search_multiset"],
+            "searches": s.searches, "requests": EDGE_REQUESTS,
+            "hit_rate": idx.hit_rate,
+            "resumed_chunks": [a["resumed_chunks"] for a in answers],
+            "params_b": n_params / 1e9, "weight_gb": weight_bytes / 1e9,
+            "decoded_agree": agree, "times": times, "card": smi}
+
+
+def gemma_phase(np, torch, smi: str, base_bytes: int) -> dict:
+    """Phase 3b: free the card of phase 3, then the ring check at 8
+    layers and the edge at full depth."""
+    left = free_card(torch)
+    log(f"phase 3b: {left / 1e9:.4f} GB allocated after phase 3 "
+        f"(before it: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3 left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    ring = gemma_ring_check(np, torch)
+    free_card(torch)
+    edge = edge_phase(np, torch, smi)
+    free_card(torch)
+    log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
+    return {"ring_check": ring, "edge": edge,
+            "allocated_after_phase3_bytes": left,
+            "allocated_before_phase3_bytes": base_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -1623,9 +1987,11 @@ def main() -> int:
     timer = CudaTimer(torch)
     timing = time_search_kernel(np, torch, timer)
     shallow = shallow_resume_check(np, torch)
+    base_bytes = free_card(torch)
     zero_counts()
     served = serve_phase(np, torch)
     serve_counts = read_counts()
+    gemma = gemma_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -1644,7 +2010,8 @@ def main() -> int:
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     path_launches = {
-        "xam_search_multiset": serve_counts["xam_search_multiset"],
+        "xam_search_multiset": (serve_counts["xam_search_multiset"]
+                                + gemma["edge"]["launches"]),
         "hopscotch_lookup": table["point"]["launches"]["hopscotch_lookup"],
         "string_match": strings["launches"]["string_match"],
         "xam_search": api["launches"]["xam_search"],
@@ -1659,7 +2026,9 @@ def main() -> int:
         "route": "cuda",
         "source": src + "xam_search/csrc/xam_multiset.cu",
         "replaces": "src/repro/kernels/xam_search/kernel.py:225",
-        "launches": served["launches"],
+        "launches": served["launches"] + gemma["edge"]["launches"],
+        "launches_serve": served["launches"],
+        "launches_edge": gemma["edge"]["launches"],
         "launches_per_request_batch": served["launches"] / served["batches"],
         "max_abs_err": max_err,
         "ms": main_row["ms"],
@@ -1697,6 +2066,7 @@ def main() -> int:
                       "serve": served["times"],
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
+                      "gemma3": gemma,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "card": smi}), flush=True)

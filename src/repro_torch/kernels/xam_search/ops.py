@@ -13,6 +13,8 @@ way through :func:`xam_search_device`.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -34,6 +36,17 @@ FLAT_LAUNCH_COUNT = 0
 #: Admission dispatches since import — ``MonarchKVIndex`` adds one per
 #: ``admit_fps`` batch (the write-path twin of ``LAUNCH_COUNT``).
 ADMIT_LAUNCH_COUNT = 0
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to the module's launch count ``name``.  The HTTP edge's
+    router workers search and admit from several threads, and ``+= 1`` on
+    a module global is a read-modify-write that could lose a count."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
+
 
 #: Query-block width: the reference's cold autotune fallback (16 below
 #: 256 queries, 64 at or above).  The answer never depends on it.
@@ -221,12 +234,11 @@ def xam_search_multiset_device(keys: torch.Tensor, masks: torch.Tensor,
     the exact compare serves both.  CPU tensors run the plain version,
     CUDA tensors the kernel (launched on the current stream, not
     synchronised)."""
-    global LAUNCH_COUNT
     _check_scoring(scoring)
     _check_operands(keys, masks, planes, valid, block_sets, live_blocks,
                     block_q)
     if planes.device.type == "cpu":
-        LAUNCH_COUNT += 1
+        count_launch("LAUNCH_COUNT")
         return xam_search_multiset_plain(keys, masks, planes, valid,
                                          block_sets, live_blocks,
                                          block_q=block_q)
@@ -234,7 +246,7 @@ def xam_search_multiset_device(keys: torch.Tensor, masks: torch.Tensor,
         out = kernel.xam_search_multiset_cuda(
             keys, masks, planes, valid, block_sets, live_blocks,
             block_q=block_q)
-        LAUNCH_COUNT += 1
+        count_launch("LAUNCH_COUNT")
         return out
     raise ValueError(f"unsupported device {planes.device}")
 
@@ -288,7 +300,6 @@ def xam_search_device(keys: torch.Tensor, data: torch.Tensor,
     Returns the (Q, C) int8 bitmap; an all-zero mask row matches every
     column.  CPU tensors run the plain version, CUDA tensors the kernel
     (on the current stream, not synchronised)."""
-    global FLAT_LAUNCH_COUNT
     if keys.dtype != torch.int8 or masks.dtype != torch.int8:
         raise TypeError(f"keys/masks must be int8, got {keys.dtype}/"
                         f"{masks.dtype}")
@@ -304,12 +315,12 @@ def xam_search_device(keys: torch.Tensor, data: torch.Tensor,
                          f"{tuple(masks.shape)}, data {tuple(data.shape)} "
                          f"({data.dtype})")
     if data.device.type == "cpu":
-        FLAT_LAUNCH_COUNT += 1
+        count_launch("FLAT_LAUNCH_COUNT")
         return xam_search_plain(keys, data, masks)
     if data.device.type == "cuda":
         out = kernel.xam_search_cuda(keys.contiguous(), data.contiguous(),
                                      masks.contiguous())
-        FLAT_LAUNCH_COUNT += 1
+        count_launch("FLAT_LAUNCH_COUNT")
         return out
     raise ValueError(f"unsupported device {data.device}")
 

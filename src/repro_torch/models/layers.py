@@ -1,6 +1,7 @@
-"""Transformer layers for the serving path — port of the global-attention
-parts of ``repro/models/layers.py``.  Plain functions over parameter
-dicts of tensors.
+"""Transformer layers for the serving path — port of the attention parts
+of ``repro/models/layers.py`` (global and sliding-window local attention,
+the ring-buffer decode).  Plain functions over parameter dicts of
+tensors.
 
 Numerics follow the reference: activations and weights bf16, plain
 ``x @ W`` projections in bf16, and the attention and unembedding
@@ -112,6 +113,15 @@ def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return logits
 
 
+def _scaled(q: torch.Tensor) -> torch.Tensor:
+    """``q * d_head ** -0.5`` with the scale itself rounded to ``q``'s
+    dtype first, as JAX casts a Python scalar to the array's dtype (torch
+    would multiply by the exact float).  The rounding happens on the host:
+    a scalar tensor made on the card would be a blocking copy per layer."""
+    scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype))
+    return q * scale
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
                       q_offset: int, kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks.
@@ -122,7 +132,6 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
-    scale = dh ** -0.5
     kv_chunk = min(kv_chunk, skv)
     n_chunks = (skv + kv_chunk - 1) // kv_chunk
     pad = n_chunks * kv_chunk - skv
@@ -130,7 +139,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     dev = q.device
-    qg = (q * scale).to(DTYPE).reshape(b, sq, kvh, rep, dh).float()
+    qg = _scaled(q).to(DTYPE).reshape(b, sq, kvh, rep, dh).float()
     q_pos = q_offset + torch.arange(sq, device=dev)
     m = torch.full((b, kvh, rep, sq), NEG_INF, dtype=torch.float32,
                    device=dev)
@@ -162,48 +171,97 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     return out.to(q.dtype)
 
 
-def decode_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: int):
-    """Single-token global-attention decode: x (B, 1, D); cache_k/v
-    (B, S_max, KV, dh) updated IN PLACE at ``pos`` (the reference returned
-    updated copies).  Returns (out (B, 1, D), cache_k, cache_v)."""
+def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor, *, local: bool,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Self-attention over x (B, S, D); ``local`` masks to the sliding
+    window."""
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = chunked_attention(
+        q, k, v, causal=cfg.causal and not cfg.encoder_only,
+        window=cfg.sliding_window if local else 0,
+        softcap=cfg.logit_softcap, q_offset=0, kv_chunk=kv_chunk)
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
+def _decode_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
+    """q, k, v of one new token at absolute position ``pos``."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.d_head)
-    k_new = (x @ params["wk"]).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    v_new = (x @ params["wv"]).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    return _qkv(params, x, cfg, positions)
 
-    s_max = cache_k.shape[1]
+
+def _decode_attend(params: dict, q: torch.Tensor, cfg: ArchConfig,
+                   cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """One query token over every cache slot where ``mask`` (S,) holds;
+    returns the output projection (B, 1, D)."""
+    b = q.shape[0]
     kvh = cfg.n_kv_heads
     rep = cfg.n_heads // kvh
-    scale = cfg.d_head ** -0.5
-    qg = (q * scale).to(DTYPE).reshape(b, 1, kvh, rep, cfg.d_head)
+    qg = _scaled(q).to(DTYPE).reshape(b, 1, kvh, rep, cfg.d_head)
     logits = torch.einsum("bqgrd,bcgd->bgrqc", qg.float(),
                           cache_k.to(DTYPE).float())
     logits = _soft_cap(logits, cfg.logit_softcap)
-    mask = torch.arange(s_max, device=x.device) <= pos
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(DTYPE)
     out = torch.einsum("bgrqc,bcgd->bqgrd", p.float(),
-                       cache_v.to(DTYPE).float()).to(x.dtype)
-    out = out.reshape(b, 1, -1) @ params["wo"]
-    return out, cache_k, cache_v
+                       cache_v.to(DTYPE).float()).to(q.dtype)
+    return out.reshape(b, 1, -1) @ params["wo"]
+
+
+def decode_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: int, *, local: bool = False):
+    """Single-token decode over a plain cache: x (B, 1, D); cache_k/v
+    (B, S_max, KV, dh) updated IN PLACE at ``pos`` (the reference returned
+    updated copies); ``local`` masks keys outside the sliding window.
+    Returns (out (B, 1, D), cache_k, cache_v)."""
+    q, k_new, v_new = _decode_qkv(params, x, cfg, pos)
+    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    k_pos = torch.arange(cache_k.shape[1], device=x.device)
+    mask = k_pos <= pos
+    if local:
+        mask = mask & (k_pos > pos - cfg.sliding_window)
+    return _decode_attend(params, q, cfg, cache_k, cache_v, mask), \
+        cache_k, cache_v
+
+
+def decode_attention_ring(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          pos: int, slot: int):
+    """Sliding-window decode over a ring-buffer cache of W slots, written
+    IN PLACE at ``slot = pos % W``.  Keys are stored post-RoPE, so slot s
+    holds absolute position ``pos - ((pos - s) mod W)``, always inside the
+    window; only slots whose position is >= 0 are valid.  The cache costs
+    O(W) instead of O(S_max).  Returns (out (B, 1, D), cache_k, cache_v)."""
+    w = cache_k.shape[1]
+    q, k_new, v_new = _decode_qkv(params, x, cfg, pos)
+    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    abs_pos = pos - (pos - torch.arange(w, device=x.device)) % w
+    return _decode_attend(params, q, cfg, cache_k, cache_v, abs_pos >= 0), \
+        cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
 # MLP and embeddings.
 # ---------------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
+    op rounded to ``x``'s dtype as the reference's bf16 ``jax.nn.silu``
+    rounds it (``F.silu`` rounds once, which moves 40% of bf16 outputs by
+    an ulp)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     up = x @ params["w_up"]
     if cfg.mlp_gated:
-        up = F.silu(x @ params["w_gate"]) * up
+        up = silu(x @ params["w_gate"]) * up
     else:
         up = F.gelu(up, approximate="tanh")
     return up @ params["w_down"]
@@ -213,9 +271,23 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
 
 
+#: Vocabulary columns per unembedding contraction: the float32 copy of
+#: the weight is made one slice at a time (at gemma3's 262,144-token
+#: vocabulary the whole copy would be 5.6 GB per call).
+VOCAB_CHUNK = 16384
+
+
 def unembed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) bf16 -> (B, S, V) float32 logits."""
+    """(B, S, D) bf16 -> (B, S, V) float32 logits, contracted in float32
+    over ``VOCAB_CHUNK`` vocabulary columns at a time: each logit is the
+    same sum over D, and the transient float32 weight is one slice."""
     w = params.get("unembed")
     if w is None:
         w = params["embed"].T
-    return torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    xf = x.float()
+    v = w.shape[1]
+    out = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
+                      device=x.device)
+    for lo in range(0, v, VOCAB_CHUNK):
+        out[..., lo:lo + VOCAB_CHUNK] = xf @ w[:, lo:lo + VOCAB_CHUNK].float()
+    return out

@@ -515,7 +515,7 @@ class MonarchKVIndex:
         bounds = np.concatenate([[0], np.cumsum(np.bincount(row))])
         rounds = [slice(int(lo), int(hi))
                   for lo, hi in zip(bounds[:-1], bounds[1:])]
-        xam_ops.ADMIT_LAUNCH_COUNT += 1
+        xam_ops.count_launch("ADMIT_LAUNCH_COUNT")
         self.stats.admit_calls += 1
         st = {"bits": self.bits, "valid": self.valid, "fp_of": self.fp_of,
               "read_after": self.read_after, "set_writes": self.set_writes,

@@ -26,6 +26,7 @@ host numpy arrays); ``KVSlabStore.resident_bytes`` counts the same bytes.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import numpy as np
@@ -50,8 +51,9 @@ class PrefillResult:
     computed_chunks: int = 0
 
 
-# KV tree leaves are (L, B, S, KV, dh): batch axis fourth-from-last,
-# sequence axis third-from-last.
+# KV tree leaves are (G, B, S, KV, dh) in a layer group and (B, S, KV, dh)
+# in a remainder block, so axes are addressed from the right, as in the
+# reference: batch fourth-from-last, sequence third-from-last.
 
 def _slice_chunk(tree: dict, row: int, lo: int, hi: int) -> dict:
     """One row's [lo, hi) token span of a kv tree, as its own tensors
@@ -104,6 +106,9 @@ class PrefixResumeEngine:
         self._decode = make_decode_step(cfg)
         self.resumed_chunks = 0          # served from slabs, cumulative
         self.computed_chunks = 0         # recomputed, cumulative
+        # Serving workers share one engine: every request gets its own
+        # cache and slabs, so the counters are the only shared state.
+        self._count_lock = threading.Lock()
 
     def _resume_run(self, fps: np.ndarray, hits: np.ndarray, s: int) -> int:
         """Longest leading run of chunks servable for EVERY row (hit in the
@@ -148,8 +153,9 @@ class PrefixResumeEngine:
                     lo = c * CHUNK_TOKENS - p_len
                     slabs[fp] = _slice_chunk(kv_suffix, r, lo,
                                              lo + CHUNK_TOKENS)
-        self.resumed_chunks += run * b
-        self.computed_chunks += (n_chunks - run) * b
+        with self._count_lock:
+            self.resumed_chunks += run * b
+            self.computed_chunks += (n_chunks - run) * b
         state = {"logits": logits, "cache": cache, "pos": s}
         return PrefillResult(state=state, slabs=slabs,
                              resumed_chunks=run * b,

@@ -378,3 +378,90 @@ def test_simulator_graph_matches_cpu():
     trace = trace_list[0]
     one = sim.simulate_trace(cfgs["monarch_m3"], *trace[1:], device="cuda")
     assert one.stats == host[("monarch_m3", trace[0])].stats
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: gemma3's ring decode and the HTTP edge on the card.
+# ---------------------------------------------------------------------------
+
+RTOL, ATOL = 1e-2, 5e-2
+
+
+def _margin_agree(got, want, gaps) -> bool:
+    """Greedy tokens equal wherever the reference's top-1/top-2 gap
+    exceeds 0.1."""
+    return bool(((got == want) | (gaps <= 0.1)).all())
+
+
+@pytest.mark.gpu
+def test_ring_decode_wraps_and_matches_oracles():
+    """Reduced gemma3 with 8 layers (a [local x 5, global] group and two
+    local remainder blocks, window 32) on the card: prefill 40 tokens and
+    decode 8 whose ring slots wrap.  Each step's logits against a
+    plain-cache decode of the same tokens (local layers masked to the
+    window), the greedy tokens against a fresh full prefill over prompt +
+    decoded tokens under the margin rule, and the first layer's ring slot
+    for slot against that prefill's."""
+    _needs_card()
+    import dataclasses
+    from _torch_parity import plain_cache_decode
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_arch("gemma3-27b").reduced(), n_layers=8)
+    params = transformer.init_params(cfg, seed=1, device="cuda")
+    s, n = 40, 8
+    prompt = np.random.default_rng(9).integers(1, cfg.vocab_size, (2, s))
+    want, fed = plain_cache_decode(params, cfg, prompt, n)
+    logits, cache = transformer.prefill(params, cfg, {"tokens": prompt},
+                                        s + n)
+    for t in range(n):
+        logits, cache = transformer.decode_step(
+            params, cfg, fed[:, t:t + 1], cache, s + t)
+        assert torch.allclose(logits, want[t], rtol=RTOL, atol=ATOL), t
+        seq = np.concatenate([prompt, fed[:, :t + 1].cpu().numpy()], axis=1)
+        full, fcache = transformer.prefill(params, cfg, {"tokens": seq},
+                                           s + n)
+        top = full.topk(2, dim=-1).values
+        assert _margin_agree(logits.argmax(-1), full.argmax(-1),
+                             top[:, 0] - top[:, 1]), t
+    ring = cache["groups"]["b0"]["k"]
+    assert ring.is_cuda and ring.shape[2] == cfg.sliding_window
+    assert torch.allclose(ring.float(), fcache["groups"]["b0"]["k"].float(),
+                          rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_httpd_edge_on_the_card():
+    """``launch/httpd.py`` booted in-process with reduced gemma3 on the
+    card: a prompt and its repeat through the socket; the repeat resumes
+    from slabs and decodes the same tokens, each lookup one launch."""
+    _needs_card()
+    import http.client
+    import json
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.launch import httpd
+    args = httpd.build_parser().parse_args(
+        ["--arch", "gemma3-27b", "--reduced", "--port", "0",
+         "--prompt-len", "48", "--decode-tokens", "3",
+         "--batch-window-ms", "0", "--admit-after-reads", "0"])
+    fe, q = httpd.build_frontend(args)
+    assert q.index.bits.is_cuda
+    fe.start()
+    before = xam.LAUNCH_COUNT
+    try:
+        toks = (np.arange(1, 49).reshape(1, 48) % 500 + 1).tolist()
+        docs = []
+        for _ in range(2):
+            conn = http.client.HTTPConnection(*fe.address, timeout=120)
+            conn.request("POST", "/v1/generate",
+                         body=json.dumps({"tokens": toks}))
+            resp = conn.getresponse()
+            assert resp.status == 200
+            docs.append(json.loads(resp.read()))
+            conn.close()
+    finally:
+        fe.shutdown()
+        q.close()
+    assert docs[1]["hit_chunks"] == 3 and docs[1]["resumed_chunks"] == 2
+    assert docs[1]["tokens"] == docs[0]["tokens"]
+    assert xam.LAUNCH_COUNT - before == q.index.stats.searches == 2

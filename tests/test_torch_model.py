@@ -1,5 +1,6 @@
-"""Parity: the port's transformer (reduced yi-9b) against the JAX
-reference, with JAX's own weights carried across by
+"""Parity: the port's transformer (reduced yi-9b, and reduced gemma3 with
+its local/global layer groups, remainder blocks and ring caches) against
+the JAX reference, with JAX's own weights carried across by
 ``transformer.params_from_numpy``.
 
 Both sides run bf16; outputs must agree within ``rtol=1e-2, atol=5e-2``
@@ -21,6 +22,7 @@ from repro import configs as j_configs
 from repro.models import transformer as j_tf
 from repro_torch import configs as t_configs
 from repro_torch.models import transformer as t_tf
+from repro_torch.pytree import tree_map
 
 RTOL, ATOL = 1e-2, 5e-2
 MARGIN = 0.1
@@ -161,12 +163,14 @@ def test_greedy_decode_matches(models):
 
 
 def test_unported_layer_kinds_raise():
+    """Global and local attention are ported; MoE, SSM and shared
+    attention still raise and name their queue item."""
     gemma = t_configs.get_arch("gemma3-27b").reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_tf.init_params(gemma, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_tf.init_params(t_configs.get_arch("qwen3-moe-30b-a3b").reduced(),
-                         device="cpu")
+    assert t_tf.param_count(t_tf.init_params(gemma, device="cpu")) > 0
+    for arch in ("qwen3-moe-30b-a3b", "falcon-mamba-7b", "zamba2-2.7b"):
+        cfg = t_configs.get_arch(arch).reduced()
+        with pytest.raises(NotImplementedError, match="not ported.*item 4"):
+            t_tf.init_params(cfg, device="cpu")
 
 
 def test_init_params_on_device_scales():
@@ -180,3 +184,126 @@ def test_init_params_on_device_scales():
     wq = a["groups"]["b0"]["attn"]["wq"].float()
     assert float(wq.std()) == pytest.approx(tcfg.d_model ** -0.5, rel=0.1)
     assert not a["groups"]["b0"]["ln1"].any()
+
+
+# ---------------------------------------------------------------------------
+# gemma3: local (sliding-window) layers, multi-kind groups, remainders.
+# ---------------------------------------------------------------------------
+
+#: reduced gemma3 (window 32): 4 layers all local (no group, rem0..rem3);
+#: 6 layers, one [local x 5, global] group; 8 layers, the group plus two
+#: local remainder blocks.
+GEMMA_LAYERS = {"local": 4, "mixed": 6, "mixed8": 8}
+
+
+def gemma_cfgs(kind: str, use_rope: bool = True):
+    n = GEMMA_LAYERS[kind]
+    return tuple(dataclasses.replace(c.get_arch("gemma3-27b").reduced(),
+                                     n_layers=n, use_rope=use_rope)
+                 for c in (j_configs, t_configs))
+
+
+def gemma_models(kind: str, use_rope: bool = True, seed: int = 1):
+    jcfg, tcfg = gemma_cfgs(kind, use_rope)
+    jp = j_tf.init_params(jax.random.PRNGKey(seed), jcfg)
+    tp = t_tf.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module", params=sorted(GEMMA_LAYERS))
+def gemma(request):
+    return (request.param,) + gemma_models(request.param)
+
+
+def test_gemma_tree_and_params_carry_across(gemma):
+    kind, jcfg, tcfg, jp, tp = gemma
+    group, n_groups, rem = tcfg.scan_groups()
+    want = ({"groups"} if n_groups else set()) | {f"rem{i}" for i in
+                                                  range(len(rem))}
+    assert set(tp) == {"embed", "final_ln"} | want
+    if n_groups:
+        assert sorted(tp["groups"]) == [f"b{i}" for i in range(len(group))]
+    flat = jax.tree_util.tree_leaves_with_path(jp)
+    assert t_tf.param_count(tp) == sum(x.size for _, x in flat)
+    for path, leaf in flat:
+        node = tp
+        for p in path:
+            node = node[p.key]
+        np.testing.assert_array_equal(node.float().numpy(), _f32(leaf))
+    # the port's own init builds the same tree
+    mine = t_tf.init_params(tcfg, device="cpu")
+    assert jax.tree.structure(jax.tree.map(lambda x: 0, mine)) == \
+        jax.tree.structure(jax.tree.map(lambda x: 0, jp))
+
+
+def test_gemma_cache_rings():
+    """Local blocks get a ring of min(max_seq, window) slots, global
+    blocks max_seq, in the reference's tree."""
+    jcfg, tcfg = gemma_cfgs("mixed8")
+    for max_seq in (20, 80):
+        jc = j_tf.init_cache(jcfg, 2, max_seq)
+        tc = t_tf.init_cache(tcfg, 2, max_seq, device="cpu")
+        assert jax.tree.map(lambda a: a.shape, jc) == \
+            tree_map(lambda a: tuple(a.shape), tc)
+    assert tc["groups"]["b0"]["k"].shape == (1, 2, 32, 4, 32)
+    assert tc["groups"]["b5"]["k"].shape == (1, 2, 80, 4, 32)
+    assert tc["rem1"]["k"].shape == (2, 32, 4, 32)
+
+
+@pytest.mark.parametrize("s", [40, 48])
+def test_gemma_full_prefill_matches(gemma, s):
+    """Logits, every cache leaf (ring slots included: S > window) and the
+    returned KV against the reference."""
+    kind, jcfg, tcfg, jp, tp = gemma
+    toks = _tokens(s, tcfg.vocab_size, seed=s)
+    jl, jc, jkv = j_tf.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                               MAX_SEQ, return_kv=True)
+    tl, tc, tkv = t_tf.prefill(tp, tcfg, {"tokens": toks}, MAX_SEQ,
+                               return_kv=True)
+    _close(tl, jl, f"{kind} logits")
+    _tree_close(tc, jc, f"{kind} cache")
+    _tree_close(tkv, jkv, f"{kind} kv")
+
+
+def test_gemma_greedy_decode_matches(gemma):
+    """3 decode steps past a wrapped ring (S=48 > window 32), the
+    reference's token fed to both, logits within tolerance and greedy
+    tokens under the margin rule."""
+    kind, jcfg, tcfg, jp, tp = gemma
+    s, n = 48, 3
+    toks = _tokens(s, tcfg.vocab_size, seed=2)
+    jl, jc = j_tf.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, MAX_SEQ)
+    tl, tc = t_tf.prefill(tp, tcfg, {"tokens": toks}, MAX_SEQ)
+    want, got, gaps = [], [], []
+    for t in range(n):
+        jl_np = np.asarray(jl)
+        want.append(jl_np.argmax(-1))
+        got.append(tl.argmax(-1).numpy())
+        gaps.append(_top2_gap(jl_np))
+        _close(tl, jl, f"{kind} decode step {t} logits")
+        nxt = want[-1].astype(np.int32)[:, None]
+        jl, jc = j_tf.decode_step(jp, jcfg, jnp.asarray(nxt), jc,
+                                  jnp.int32(s + t))
+        tl, tc = t_tf.decode_step(tp, tcfg, nxt, tc, s + t)
+    _tree_close(tc, jc, f"{kind} cache after decode")
+    assert_greedy_agree(np.stack(got, 1), np.stack(want, 1),
+                        np.stack(gaps, 1))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_gemma_attention_block_matches(local):
+    """``layers.attention_block`` (S = 48 > window 32) against the
+    reference's, on the first block's weights."""
+    from repro.models import layers as j_layers
+    from repro_torch.models import layers as t_layers
+    jcfg, tcfg, jp, tp = gemma_models("local")
+    x = np.random.default_rng(5).standard_normal((2, 48, tcfg.d_model))
+    pos = np.broadcast_to(np.arange(48)[None], (2, 48))
+    want = j_layers.attention_block(
+        jp["rem0"]["attn"], jnp.asarray(x, jnp.bfloat16), jcfg,
+        jnp.asarray(pos), local=local)
+    got = t_layers.attention_block(
+        tp["rem0"]["attn"], torch.from_numpy(x).to(torch.bfloat16), tcfg,
+        torch.from_numpy(pos.copy()), local=local)
+    _close(got, want, f"attention_block local={local}")

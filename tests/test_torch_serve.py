@@ -175,6 +175,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
+assert {{"repro_torch.serve.http_frontend",
+         "repro_torch.launch.httpd"}} <= set(mods)
 print("imported", len(mods))
 """
 
