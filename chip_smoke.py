@@ -44,6 +44,24 @@ code 1) on failure:
    ``run_request_loop`` on a fresh index over the same parameters must
    give the edge's greedy tokens wherever the top-1/top-2 gap exceeds
    0.1.  Per-stage times beside the decode's weight-read bound.
+3c. Logical index shards and MoE.  gemma3-27b is freed first and the
+   card's allocated memory must be back to its level before phase 3.
+   (a) A seeded admit/re-offer/lookup/rotate schedule through indexes of
+   1, 2 and 4 shards under "auto" and "fanout" on the card, each equal to
+   a one-shard CPU index after every op (planes, counters, wear state,
+   hits, wear report); a lookup is one multi-set launch under "auto" and
+   one per shard holding queries under "fanout"; the schedule installs,
+   evicts, skips and throttles.  (b) One qwen3-moe MoE block at full
+   width (128 experts, top-8), card against CPU at S = 96 (capacity 7,
+   entries dropped) and S = 1: expert ids equal where the 8th/9th router
+   gap exceeds 1e-6, outputs within rtol 1e-2/atol 5e-2 but for at most
+   0.1% (none past 0.5: bf16 sums that cancel); then 4 MoE layers at
+   full width, prefill 2 x 96 and 8 greedy decode steps, tokens equal
+   under the margin rule wherever the card routed the row's tokens as the
+   CPU did (bf16 noise flips routing in later layers).  (c)
+   qwen3-moe-30b-a3b at full width and depth (48 layers, 30.53 B bf16
+   parameters, 61.06 GB) behind ``launch/httpd.build_frontend`` with
+   ``--n-shards 4``, checked and timed as phase 3b's edge.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -573,12 +591,27 @@ EDGE_ARGV = ["--arch", "gemma3-27b", "--device", "cuda", "--host",
              "--decode-tokens", "8", "--admit-after-reads", "0"]
 
 
+GEMMA_DIMS = {"n_layers": 62, "d_model": 5376, "n_heads": 32,
+              "n_kv_heads": 16, "d_head": 128, "d_ff": 21504,
+              "vocab_size": 262144, "sliding_window": 1024}
+
+
+def gemma_tree(params) -> None:
+    if sorted(params["groups"]) != [f"b{i}" for i in range(6)] or \
+            params["groups"]["b0"]["attn"]["wq"].shape[0] != 10 or \
+            "rem1" not in params or "rem2" in params:
+        raise AssertionError("gemma3-27b's tree is not 10 x b0..b5 + rem0/1")
+
+
 def free_card(torch) -> int:
-    """Collect what the last phase left and empty the caching
-    allocator's free blocks; returns the device memory still allocated."""
+    """Collect what the last phase left, drop cuBLAS's workspaces (one
+    per thread that ran a GEMM: the edge's two router workers leave 2 x
+    32 MiB) and empty the caching allocator's free blocks; returns the
+    device memory still allocated."""
     import gc
     gc.collect()
     torch.cuda.synchronize()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated()
 
@@ -715,16 +748,19 @@ def http_json(method: str, host: str, port: int, path: str, body=None):
     return resp.status, doc
 
 
-def edge_phase(np, torch, smi: str) -> dict:
-    """gemma3-27b at full width and depth (62 layers, bf16, seeded random
-    weights on the card) booted behind ``launch/httpd.build_frontend``
-    on 127.0.0.1, port 0: 8 POST /v1/generate of 2 x 96 tokens sharing a
-    48-token prefix from one client, then /healthz, /stats and the
-    graceful drain.  The launch counts are zeroed just before the boot
-    and read after the drain.  The same 8 requests are then replayed
-    through ``run_request_loop`` on a fresh index over the same
-    parameters (greedy tokens equal under the margin rule), and the
-    per-stage times are taken on that engine."""
+def edge_phase(np, torch, smi: str, argv: list, dims: dict,
+               check_tree) -> dict:
+    """The ``--arch`` of ``argv`` at full width and depth (its fields
+    must equal ``dims``; bf16, seeded random weights on the card, their
+    tree checked by ``check_tree``) booted behind
+    ``launch/httpd.build_frontend`` on 127.0.0.1, port 0: 8 POST
+    /v1/generate of 2 x 96 tokens sharing a 48-token prefix from one
+    client, then /healthz, /stats and the graceful drain.  The launch
+    counts are zeroed just before the boot and read after the drain.  The
+    same 8 requests are then replayed through ``run_request_loop`` on a
+    fresh index of the same shards over the same parameters (greedy
+    tokens equal under the margin rule), and the per-stage times are
+    taken on that engine."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.xam_search import ops
     from repro_torch.launch import httpd
@@ -735,11 +771,11 @@ def edge_phase(np, torch, smi: str) -> dict:
     from repro_torch.serve.kv_index import (KVIndexConfig, KVSlabStore,
                                             MonarchKVIndex)
 
-    cfg = get_arch("gemma3-27b")
-    dims = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.sliding_window)
-    if dims != (62, 5376, 32, 16, 128, 21504, 262144, 1024):
-        raise AssertionError(f"not gemma3-27b at full width: {dims}")
+    args = httpd.build_parser().parse_args(argv)
+    cfg = get_arch(args.arch)
+    got = {k: getattr(cfg, k) for k in dims}
+    if got != dims:
+        raise AssertionError(f"not {cfg.name} at full width: {got}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
@@ -748,11 +784,8 @@ def edge_phase(np, torch, smi: str) -> dict:
     n_params = transformer.param_count(params)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(params))
-    if sorted(params["groups"]) != [f"b{i}" for i in range(6)] or \
-            params["groups"]["b0"]["attn"]["wq"].shape[0] != 10 or \
-            "rem1" not in params or "rem2" in params:
-        raise AssertionError("gemma3-27b's tree is not 10 x b0..b5 + rem0/1")
-    log(f"gemma3-27b: {n_params / 1e9:.4f} B params ({weight_bytes / 1e9:.3f}"
+    check_tree(params)
+    log(f"{cfg.name}: {n_params / 1e9:.4f} B params ({weight_bytes / 1e9:.3f}"
         f" GB bf16) drawn on the card in {init_s:.1f} s")
 
     rng = np.random.default_rng(0)
@@ -761,7 +794,6 @@ def edge_phase(np, torch, smi: str) -> dict:
         1, cfg.vocab_size, (2, 48))], axis=1).astype(np.int32)
         for _ in range(EDGE_REQUESTS)]
 
-    args = httpd.build_parser().parse_args(EDGE_ARGV)
     zero_counts()
     frontend, admit_q = httpd.build_frontend(args, params=params)
     idx = admit_q.index
@@ -807,7 +839,11 @@ def edge_phase(np, torch, smi: str) -> dict:
     if admit_q.pending() or report["missing_slabs"] or \
             report["orphan_slabs"] or not chunks <= set(idx.slot_of):
         raise AssertionError(f"drain lost admissions: {report}")
-    log(f"edge: {EDGE_REQUESTS} requests at gemma3-27b full depth, hit rate "
+    if (idx.n_shards, idx.n_parts) != (args.n_shards, 1):
+        raise AssertionError(f"index of {idx.n_shards} shards in "
+                             f"{idx.n_parts} partitions")
+    log(f"edge: {EDGE_REQUESTS} requests at {cfg.name} full depth, "
+        f"{idx.n_shards} index shards, hit rate "
         f"{idx.hit_rate:.3f}, {s.searches} searches == "
         f"{launches['xam_search_multiset']} launches, resumed chunks "
         f"{[a['resumed_chunks'] for a in answers]}, drain {drain_s:.2f} s, "
@@ -816,7 +852,7 @@ def edge_phase(np, torch, smi: str) -> dict:
     # The same requests through run_request_loop on a fresh index.
     kv_cfg = KVIndexConfig(n_sets=8, m_writes=args.m_writes,
                            clock=args.wear_clock, fingerprint="prefix",
-                           admit_after_reads=0)
+                           admit_after_reads=0, n_shards=args.n_shards)
     idx2 = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore(), device="cuda")
     q2 = AdmitQueue(idx2)
     max_seq = args.prompt_len + args.decode_tokens
@@ -878,7 +914,8 @@ def edge_phase(np, torch, smi: str) -> dict:
     q2.close()
     log("edge stage times (" + smi + "): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float)))
-    return {"launches": launches["xam_search_multiset"],
+    return {"arch": cfg.name, "n_shards": idx.n_shards,
+            "launches": launches["xam_search_multiset"],
             "searches": s.searches, "requests": EDGE_REQUESTS,
             "hit_rate": idx.hit_rate,
             "resumed_chunks": [a["resumed_chunks"] for a in answers],
@@ -898,12 +935,347 @@ def gemma_phase(np, torch, smi: str, base_bytes: int) -> dict:
     t0 = time.perf_counter()
     ring = gemma_ring_check(np, torch)
     free_card(torch)
-    edge = edge_phase(np, torch, smi)
+    edge = edge_phase(np, torch, smi, EDGE_ARGV, GEMMA_DIMS, gemma_tree)
     free_card(torch)
     log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
     return {"ring_check": ring, "edge": edge,
             "allocated_after_phase3_bytes": left,
             "allocated_before_phase3_bytes": base_bytes}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: logical index shards, the MoE block, qwen3-moe behind the edge.
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 24                   # randomized admit/lookup/rotate ops
+SHARD_CFG = dict(n_sets=8, set_ways=4, admit_after_reads=1, m_writes=1,
+                 window_ops=64, rotate_every=1 << 30)
+ROUTE_MARGIN = 1e-6                # k-th vs (k+1)-th router probability
+# The full-width MoE block, card against CPU, is held to RTOL/ATOL with
+# fixed ceilings on what falls outside, as the deep resume check is: its
+# outputs (median |y| 6.5, up to 54) are sums of up to 8 gated bf16
+# expert outputs, and where they cancel, one bf16 ulp of a contribution
+# that the GEMMs' accumulation order moved (0.11% of cuBLAS's bf16 bmm
+# outputs differ from a float64 product by an ulp, 0.02% of the CPU's)
+# exceeds the bound on the small sum.  Two CPU runs whose only difference
+# is the GEMMs' rounding already put 0.003% of elements outside, max
+# |diff| 0.25; the card put 0.038% outside, max 0.25.
+MOE_MAX_ABS, MOE_MAX_OUTSIDE = 0.5, 1e-3
+MOE_PREFILL = 96                   # capacity 7 at top-8 of 128: drops
+MOE_LAYERS = 4
+MOE_DECODE = 8
+QWEN_DIMS = {"n_layers": 48, "d_model": 2048, "n_heads": 32,
+             "n_kv_heads": 4, "d_head": 128, "n_experts": 128, "top_k": 8,
+             "moe_d_ff": 768, "vocab_size": 151936}
+MOE_EDGE_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--device", "cuda",
+                 "--host", "127.0.0.1", "--port", "0", "--prompt-len", "96",
+                 "--decode-tokens", "8", "--admit-after-reads", "0",
+                 "--n-shards", "4"]
+
+
+def index_state(np, idx) -> dict:
+    """An index's global state on the host: planes, counters, every wear
+    field, the shadow map, the stats and the wear report."""
+    ws = idx.wear_state
+    wear = {f.name: (getattr(ws, f.name).cpu().numpy() if f.name != "offsets"
+                     else [int(getattr(ws.offsets, g.name)) for g in
+                           dataclasses.fields(ws.offsets)])
+            for f in dataclasses.fields(ws)}
+    return {"bits": idx.bits.cpu().numpy(), "valid": idx.valid.cpu().numpy(),
+            "fp_of": idx.fp_of.cpu().numpy(),
+            "read_after": idx.read_after.cpu().numpy(),
+            "set_writes": idx.set_writes.cpu().numpy(),
+            "counter": idx.counter.cpu().numpy(), "wear": wear,
+            "slot_of": dict(idx.slot_of), "offset": idx.offset,
+            "report": idx.wear_report(),
+            "stats": (idx.stats.admissions, idx.stats.admission_skips,
+                      idx.stats.throttled, idx.stats.evictions,
+                      idx.stats.chunk_hits, idx.stats.rotations)}
+
+
+def same_state(np, a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            bool((a == b).all())
+    return a == b
+
+
+def shard_check(np, torch) -> dict:
+    """(a) Logical shards on the card: one seeded admit/re-offer/lookup/
+    rotate schedule through indexes of 1, 2 and 4 shards under "auto"
+    and "fanout", all on the card, beside a one-shard index on the CPU.
+    After every op every card index's global state equals the CPU's; a
+    lookup is one multi-set launch under "auto" and one per shard
+    holding queries under "fanout".  The schedule must install, evict,
+    skip (no-allocate) and throttle."""
+    from repro_torch.data.pipeline import fingerprint_blocks
+    from repro_torch.kernels.xam_search import ops
+    from repro_torch.serve.kv_index import (CHUNK_TOKENS, KVIndexConfig,
+                                            MonarchKVIndex)
+
+    idxs = {(n, d): MonarchKVIndex(KVIndexConfig(n_shards=n, **SHARD_CFG),
+                                   dispatch=d, device="cuda")
+            for n in (1, 2, 4) for d in ("auto", "fanout")}
+    cpu = MonarchKVIndex(KVIndexConfig(**SHARD_CFG), device="cpu")
+    every = [cpu, *idxs.values()]
+    rng = np.random.default_rng(17)
+    per_lookup = {"auto": [], "fanout": []}
+    t0 = time.perf_counter()
+    for step in range(SHARD_STEPS):
+        toks = rng.integers(1, 600, (2, 6 * CHUNK_TOKENS)).astype(np.int32)
+        op = rng.random()
+        if op < 0.6:
+            fps = np.unique(fingerprint_blocks(toks, CHUNK_TOKENS).ravel())
+            for _ in range(2 if op < 0.4 else 1):   # a re-offer
+                for idx in every:
+                    idx.admit_fps(fps)
+        elif op < 0.9:
+            want = cpu.lookup(toks)
+            sets = cpu._set_of(cpu.fingerprints(toks).ravel())
+            for (n, d), idx in idxs.items():
+                before = ops.LAUNCH_COUNT
+                got = idx.lookup(toks)
+                made = ops.LAUNCH_COUNT - before
+                expect = (1 if d == "auto" else
+                          len(np.unique(sets // idx.sets_per_part)))
+                if made != expect:
+                    raise AssertionError(f"{n} shards, {d}: {made} search "
+                                         f"launches, expected {expect}")
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{n} shards, {d}: hits differ")
+                per_lookup[d].append(made)
+        else:
+            for idx in every:
+                idx._rotate()
+        want = index_state(np, cpu)
+        for (n, d), idx in idxs.items():
+            if not same_state(np, index_state(np, idx), want):
+                raise AssertionError(f"step {step}: the card's {n}-shard "
+                                     f"{d} index differs from the CPU's")
+    st = cpu.stats
+    if not (st.admissions and st.evictions and st.admission_skips
+            and st.throttled and st.rotations and per_lookup["auto"]):
+        raise AssertionError(f"schedule too tame: {st}")
+    # Host-clock times at 4 shards: a 12-chunk lookup, and the admission
+    # of 12 fresh fingerprints (one round-grid dispatch under "auto",
+    # the per-candidate scans of each partition under "fanout").
+    fresh = iter(rng.integers(1, 2 ** 32, (40, 12), dtype=np.uint32))
+    before = ops.LAUNCH_COUNT
+    times = {d: {"lookup_ms": host_ms(torch, lambda: idxs[4, d].lookup(
+                     toks), 10),
+                 "admit_ms": host_ms(torch, lambda: idxs[4, d].admit_fps(
+                     next(fresh)), 10)}
+             for d in ("auto", "fanout")}
+    timing_launches = ops.LAUNCH_COUNT - before
+    log(f"shards: {SHARD_STEPS} ops at 1/2/4 shards, auto and fanout on "
+        f"the card equal the CPU after every op; launches per lookup "
+        f"auto {per_lookup['auto']}, fanout {per_lookup['fanout']}; "
+        f"{st.admissions} installs, {st.evictions} evictions, "
+        f"{st.admission_skips} skips, {st.throttled} throttles; at 4 "
+        f"shards lookup / admission of 12 ms: auto "
+        f"{times['auto']['lookup_ms']:.4f} / {times['auto']['admit_ms']:.4f}"
+        f", fanout {times['fanout']['lookup_ms']:.4f} / "
+        f"{times['fanout']['admit_ms']:.4f}")
+    lookups = len(per_lookup["auto"]) // 3
+    return {"ops": SHARD_STEPS, "lookups": lookups,
+            "launches_per_lookup": per_lookup,
+            "launches": sum(per_lookup["auto"]) + sum(per_lookup["fanout"]),
+            "cpu_plain_runs": lookups, "timing_launches": timing_launches,
+            "installs": st.admissions, "evictions": st.evictions,
+            "skips": st.admission_skips, "throttles": st.throttled,
+            "rotations": st.rotations, "times_at_4_shards": times,
+            "seconds": time.perf_counter() - t0}
+
+
+def routing_masks(np, probs, k: int, ix):
+    """From the CPU's router probabilities (G, N, E) and expert ids
+    (G, N, K): the tokens whose k-th/(k+1)-th gap exceeds the margin, the
+    tokens whose whole top k+1 is ordered past it, and the tokens whose
+    output a near tie could change: the tied token, and its group's
+    tokens routed to either of the tied experts (their rank in that
+    expert, hence their drops, may move)."""
+    top = np.sort(probs, axis=-1)[..., ::-1][..., :k + 1]
+    order = np.argsort(-probs, axis=-1, kind="stable")[..., :k + 1]
+    gaps = top[..., :-1] - top[..., 1:]
+    decided = gaps[..., k - 1] > ROUTE_MARGIN
+    ordered = (gaps > ROUTE_MARGIN).all(-1)
+    clean = decided.copy()
+    for g, n in zip(*np.nonzero(~decided)):
+        tied = order[g, n, k - 1:k + 1]
+        clean[g] &= ~np.isin(ix[g], tied).any(-1)
+    return decided, ordered, clean
+
+
+def moe_layer_check(np, torch) -> dict:
+    """(b) One qwen3-moe MoE block at full width (d_model 2048, 128
+    experts, top-8, moe_d_ff 768; seeded weights drawn on the card) on
+    the card and on the CPU, same weights and inputs: expert ids equal
+    where the routing is decided past ``ROUTE_MARGIN``; where no near tie
+    can reach them, outputs within RTOL/ATOL but for at most
+    ``MOE_MAX_OUTSIDE`` of them, none further than ``MOE_MAX_ABS``; at
+    S = 96 (capacity 7: drops happen) and at decode, S = 1 (capacity 1).  Then 4 layers at
+    full width: prefill 2 x 96 tokens and 8 greedy decode steps, card
+    against CPU, tokens equal under the margin rule."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, transformer
+    from repro_torch.pytree import tree_map
+
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    if {k: getattr(cfg, k) for k in QWEN_DIMS} != QWEN_DIMS:
+        raise AssertionError("not qwen3-moe-30b-a3b at full width")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    p = moe.init_moe(gen, cfg)
+    p_cpu = tree_map(lambda a: a.cpu(), p)
+    rows = []
+    for s in (MOE_PREFILL, 1):
+        x = torch.from_numpy(np.random.default_rng(s).standard_normal(
+            (2, s, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+        y, ix, probs = moe.moe_block(p, x.cuda(), cfg, return_routing=True)
+        yc, ixc, probsc = moe.moe_block(p_cpu, x, cfg, return_routing=True)
+        ix, ixc = ix.cpu().numpy(), ixc.numpy()
+        probsc = probsc.numpy()
+        decided, ordered, clean = routing_masks(np, probsc, cfg.top_k, ixc)
+        if not ((np.sort(ix, -1) == np.sort(ixc, -1)).all(-1)[decided].all()
+                and (ix == ixc).all(-1)[ordered].all()):
+            raise AssertionError(f"S={s}: the card routes decided tokens "
+                                 "to other experts than the CPU")
+        a, b = y.float().cpu().numpy(), yc.float().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"S={s}: non-finite MoE output")
+        diff = np.abs(a - b)
+        outside = float((diff > ATOL + RTOL * np.abs(b))[clean].mean())
+        c = moe.capacity(cfg, s)
+        drops = int(sum(max(int(n) - c, 0) for g in ixc for n in np.bincount(
+            g.ravel(), minlength=cfg.n_experts)))
+        if outside > MOE_MAX_OUTSIDE or diff[clean].max() > MOE_MAX_ABS or \
+                clean.mean() < 0.9:
+            raise AssertionError(f"S={s}: card vs CPU MoE outputs: max "
+                                 f"|diff| {diff[clean].max()}, "
+                                 f"{outside} outside")
+        if (drops > 0) != (s == MOE_PREFILL):
+            raise AssertionError(f"S={s}: {drops} entries dropped")
+        xc = x.cuda()
+        ms = host_ms(torch, lambda: moe.moe_block(p, xc, cfg), 10)
+        rows.append({"tokens_per_group": s, "capacity": c, "drops": drops,
+                     "undecided_tokens": int((~decided).sum()),
+                     "compared_tokens": int(clean.sum()),
+                     "max_abs_diff": float(diff[clean].max()),
+                     "outside_tol": outside, "block_ms": ms})
+        log(f"MoE block at full width, S={s} (capacity {c}, {drops} "
+            f"entries dropped): card vs CPU max |diff| "
+            f"{rows[-1]['max_abs_diff']:.6f}, {outside:.6f} outside, over "
+            f"{int(clean.sum())} tokens ({int((~decided).sum())} near "
+            f"ties), {ms:.4f} ms")
+    del p, p_cpu
+
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+    params = transformer.init_params(cfg4, seed=1, device="cuda")
+    params_cpu = tree_map(lambda a: a.cpu(), params)
+    toks = np.random.default_rng(4).integers(1, cfg.vocab_size,
+                                             (2, MOE_PREFILL))
+    max_seq = MOE_PREFILL + MOE_DECODE
+
+    def routed(fn):
+        """``fn()`` and every MoE block's (B, S, K) expert sets."""
+        rec, real = [], moe.moe_block
+
+        def spy(p, x, c, return_routing=False):
+            y, ix, probs = real(p, x, c, return_routing=True)
+            rec.append(ix.sort(-1).values.cpu().numpy())
+            return (y, ix, probs) if return_routing else y
+
+        moe.moe_block = spy
+        try:
+            return fn(), rec
+        finally:
+            moe.moe_block = real
+
+    def same_rows(ra, rb):
+        """Rows whose every token took the same experts in every layer."""
+        return np.all([(a == b).all(axis=(1, 2)) for a, b in zip(ra, rb)],
+                      axis=0)
+
+    (lg, cache), rg = routed(lambda: transformer.prefill(
+        params, cfg4, {"tokens": toks}, max_seq))
+    (lc, cache_c), rc = routed(lambda: transformer.prefill(
+        params_cpu, cfg4, {"tokens": toks}, max_seq))
+    flips = [int((~(a == b).all(-1)).sum()) for a, b in zip(rg, rc)]
+    same = same_rows(rg, rc)
+    compared, decode_pairs, d_max, agree = 0, 0, 0.0, []
+    for t in range(MOE_DECODE):
+        a, b = lg.float().cpu().numpy(), lc.numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"non-finite logits at step {t}")
+        gap = top2_gap(np, b)
+        for r in np.nonzero(same)[0]:
+            compared += 1
+            decode_pairs += t > 0
+            d_max = max(d_max, float(np.abs(a[r] - b[r]).max()))
+            agree.append(a[r].argmax() == b[r].argmax())
+            if not agree[-1] and gap[r] > 0.1:
+                raise AssertionError(
+                    f"{MOE_LAYERS} MoE layers, step {t}, row {r}: the card's "
+                    "greedy token differs from the CPU's, routed alike, "
+                    f"where the top-1/top-2 gap is {gap[r]}")
+        nxt = b.argmax(-1)[:, None]               # the CPU's token to both
+        (lg, cache), rg = routed(lambda: transformer.decode_step(
+            params, cfg4, nxt, cache, MOE_PREFILL + t))
+        (lc, cache_c), rc = routed(lambda: transformer.decode_step(
+            params_cpu, cfg4, nxt, cache_c, MOE_PREFILL + t))
+        same = same_rows(rg, rc)
+    if decode_pairs < (MOE_DECODE - 1):
+        raise AssertionError(f"only {decode_pairs} of {2 * (MOE_DECODE - 1)} "
+                             "decode steps routed alike on card and CPU")
+    log(f"{MOE_LAYERS} MoE layers at full width, prefill {MOE_PREFILL} + "
+        f"{MOE_DECODE} decode steps: prefill tokens routed differently per "
+        f"layer {flips} of {2 * MOE_PREFILL}; {compared} of "
+        f"{2 * MOE_DECODE} (row, step) logits routed alike, max |diff| "
+        f"{d_max:.6f}, greedy tokens agree {float(np.mean(agree)):.3f}")
+    del params, params_cpu, cache, cache_c
+    return {"block": rows, "layers": MOE_LAYERS,
+            "prefill_routing_flips": flips, "compared_steps": compared,
+            "logits_max_abs_diff": d_max,
+            "greedy_agree": float(np.mean(agree))}
+
+
+def qwen_tree(params) -> None:
+    b0 = params["groups"]["b0"]
+    if sorted(params["groups"]) != ["b0"] or "mlp" in b0 or \
+            tuple(b0["moe"]["w_up"].shape) != (48, 128, 2048, 768):
+        raise AssertionError("qwen3-moe's tree is not 48 x b0 with moe")
+
+
+def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
+    """Phase 3c: free the card of gemma3-27b, then (a) the shards on the
+    card, (b) the MoE block and 4 MoE layers card vs CPU, and (c)
+    qwen3-moe-30b-a3b at full width and depth behind the edge with
+    ``--n-shards 4``."""
+    left = free_card(torch)
+    log(f"phase 3c: {left / 1e9:.4f} GB allocated after phase 3b "
+        f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3b left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    zero_counts()
+    shards = shard_check(np, torch)
+    counted = read_counts()["xam_search_multiset"]
+    # the CPU index's lookups run the plain version, which counts too;
+    # the timed lookups after the schedule are not the path's
+    if counted != (shards["launches"] + shards["cpu_plain_runs"]
+                   + shards["timing_launches"]):
+        raise AssertionError(f"multi-set count {counted} != {shards}")
+    layer = moe_layer_check(np, torch)
+    free_card(torch)
+    edge = edge_phase(np, torch, smi, MOE_EDGE_ARGV, QWEN_DIMS, qwen_tree)
+    free_card(torch)
+    log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
+    return {"shards": shards, "moe": layer, "edge": edge,
+            "allocated_after_phase3b_bytes": left}
 
 
 # ---------------------------------------------------------------------------
@@ -1992,6 +2364,7 @@ def main() -> int:
     served = serve_phase(np, torch)
     serve_counts = read_counts()
     gemma = gemma_phase(np, torch, smi, base_bytes)
+    moe = moe_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -2011,7 +2384,9 @@ def main() -> int:
 
     path_launches = {
         "xam_search_multiset": (serve_counts["xam_search_multiset"]
-                                + gemma["edge"]["launches"]),
+                                + gemma["edge"]["launches"]
+                                + moe["shards"]["launches"]
+                                + moe["edge"]["launches"]),
         "hopscotch_lookup": table["point"]["launches"]["hopscotch_lookup"],
         "string_match": strings["launches"]["string_match"],
         "xam_search": api["launches"]["xam_search"],
@@ -2026,9 +2401,11 @@ def main() -> int:
         "route": "cuda",
         "source": src + "xam_search/csrc/xam_multiset.cu",
         "replaces": "src/repro/kernels/xam_search/kernel.py:225",
-        "launches": served["launches"] + gemma["edge"]["launches"],
+        "launches": path_launches["xam_search_multiset"],
         "launches_serve": served["launches"],
         "launches_edge": gemma["edge"]["launches"],
+        "launches_shards": moe["shards"]["launches"],
+        "launches_moe_edge": moe["edge"]["launches"],
         "launches_per_request_batch": served["launches"] / served["batches"],
         "max_abs_err": max_err,
         "ms": main_row["ms"],
@@ -2066,7 +2443,7 @@ def main() -> int:
                       "serve": served["times"],
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
-                      "gemma3": gemma,
+                      "gemma3": gemma, "qwen3_moe": moe,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "card": smi}), flush=True)

@@ -9,8 +9,8 @@ Hierarchy (Table 3, 8 GB Monarch):
 Supersets are 8x8 grids of 64x64 XAM subarrays; the subarray at (i, j)
 belongs to set k = (j - i) % 8 (diagonal arrangement, Fig. 4).  The §8
 rotary offsets rotate vault/bank/superset/set IDs by distinct primes on
-every rotate signal.  The multi-partition helpers (``shard_of_set``,
-``shard_roll_plan``) are not ported yet: the port runs one partition.
+every rotate signal.  ``shard_of_set`` and ``shard_roll_plan`` carry
+the serving index's contiguous-block set shards.
 """
 from __future__ import annotations
 
@@ -101,10 +101,52 @@ def sets_per_shard(n_sets: int, n_shards: int) -> int:
     return n_sets // n_shards
 
 
+def shard_of_set(set_ids, n_sets: int, n_shards: int):
+    """Global physical set ids -> ``(shard, local_set)``: shard ``k`` owns
+    the contiguous block ``[k * sets_per_shard, (k + 1) *
+    sets_per_shard)``, a pure relabeling, so no hit, install or wear
+    decision depends on the shard count.
+
+    >>> shard, local = shard_of_set(torch.arange(4), 4, 2)
+    >>> shard.tolist(), local.tolist()
+    ([0, 0, 1, 1], [0, 1, 0, 1])
+    """
+    s_local = sets_per_shard(n_sets, n_shards)
+    return set_ids // s_local, set_ids % s_local
+
+
 def shard_set_slice(shard: int, n_sets: int, n_shards: int) -> slice:
     """Global-set slice owned by ``shard`` (contiguous-block ownership)."""
     s_local = sets_per_shard(n_sets, n_shards)
     return slice(shard * s_local, (shard + 1) * s_local)
+
+
+def shard_roll_plan(shift: int, n_sets: int, n_parts: int):
+    """The global cyclic set roll ``new[g] = old[(g - shift) mod n_sets]``
+    factored into per-shard moves.  With ``s_loc = n_sets // n_parts``
+    and ``shift = q * s_loc + r`` (``0 <= r < s_loc``), each source shard
+    ``j`` sends its low ``s_loc - r`` rows to shard ``j + q`` and its high
+    ``r`` rows to shard ``j + q + 1``.  Returns ``(q, r, low_perm,
+    high_perm)``: the ``(source, destination)`` pairs of the low and high
+    slabs, or None where that slab stays on its shard (identity
+    permutation, or no boundary slab when ``r == 0``).
+
+    >>> shard_roll_plan(7, 8, 4)
+    (3, 1, [(0, 3), (1, 0), (2, 1), (3, 2)], None)
+    >>> shard_roll_plan(1, 8, 4)
+    (0, 1, None, [(0, 1), (1, 2), (2, 3), (3, 0)])
+    >>> shard_roll_plan(2, 8, 4)
+    (1, 0, [(0, 1), (1, 2), (2, 3), (3, 0)], None)
+    """
+    s_loc = sets_per_shard(n_sets, n_parts)
+    if not 0 < shift < n_sets:
+        raise ValueError(f"shift={shift} must be in (0, {n_sets})")
+    q, r = divmod(shift, s_loc)
+    low_perm = ([(j, (j + q) % n_parts) for j in range(n_parts)]
+                if q % n_parts != 0 else None)
+    high_perm = ([(j, (j + q + 1) % n_parts) for j in range(n_parts)]
+                 if r != 0 and (q + 1) % n_parts != 0 else None)
+    return q, r, low_perm, high_perm
 
 
 # Rotary offsets (§8): primes per level, vault bumped every 8th rotate.

@@ -1,8 +1,12 @@
 """Public wrappers for the XAM search kernels (port of the flat search
-and the single-partition half of ``repro/kernels/xam_search/ops.py``).
+and the one-device half of ``repro/kernels/xam_search/ops.py``).
 
 The host groups a query batch into per-set blocks of ``block_q`` queries
 (:func:`group_queries_by_set`); one launch answers the whole batch.
+:func:`xam_search_multiset_sharded` is the fan-out over set shards that
+the serving index's ``"fanout"`` oracle runs: one launch per shard that
+holds queries, all on the planes' card.  The ``shard_map`` stacked search
+spans several devices and is not ported (one card).
 :func:`xam_search_multiset_device` is THE wrapper the serving path calls:
 for tensors on the CPU it runs the plain PyTorch version
 (``ref.xam_search_multiset_plain``), for CUDA tensors it launches the
@@ -107,6 +111,46 @@ def group_queries_by_set(set_ids: np.ndarray, n_sets: int,
     padded = np.zeros(n_qb, np.int32)
     padded[:total_blocks] = block_sets
     return slot, padded, n_qb * block_q, total_blocks
+
+
+def group_queries_by_set_stacked(set_ids: np.ndarray, n_sets: int,
+                                 n_parts: int,
+                                 block_q: int = MULTISET_BLOCK_Q):
+    """Two-level stacked layout: queries split by owning partition
+    (``set_id // (n_sets // n_parts)``, contiguous blocks), then each
+    partition's queries packed into per-(local-)set blocks as
+    :func:`group_queries_by_set` packs them, every partition padded to one
+    common pow2 block count.  Query i sits at row ``slot[i]`` of partition
+    ``part_of[i]``; block b of partition p searches its local set
+    ``block_sets[p, b]``; only its first ``n_blocks[p]`` blocks are live.
+    Returns ``(part_of, slot, block_sets, n_blocks, padded_q)``.
+
+    >>> part_of, slot, block_sets, n_blocks, padded_q = (
+    ...     group_queries_by_set_stacked([5, 5, 4], 8, 2, block_q=4))
+    >>> part_of.tolist(), slot.tolist()
+    ([1, 1, 1], [4, 5, 0])
+    >>> block_sets.tolist(), n_blocks.tolist(), padded_q
+    ([[0, 0, 0, 0], [0, 1, 0, 0]], [0, 2], 16)
+    """
+    set_ids = np.asarray(set_ids, np.int64)
+    if n_sets % n_parts != 0:
+        raise ValueError(f"n_parts={n_parts} must divide n_sets={n_sets}")
+    s_part = n_sets // n_parts
+    part_of = set_ids // s_part
+    grouped = []
+    for p in range(n_parts):
+        sel = np.nonzero(part_of == p)[0]
+        sl, bs, tb = _group_one(set_ids[sel] - p * s_part, s_part, block_q)
+        grouped.append((sel, sl, bs, tb))
+    n_qb = bucket_pow2(max(max(g[3] for g in grouped), 1), lo=4)
+    slot = np.empty(set_ids.shape[0], np.int64)
+    block_sets = np.zeros((n_parts, n_qb), np.int32)
+    n_blocks = np.zeros(n_parts, np.int32)
+    for p, (sel, sl, bs, tb) in enumerate(grouped):
+        slot[sel] = sl
+        block_sets[p, :tb] = bs
+        n_blocks[p] = tb
+    return part_of, slot, block_sets, n_blocks, n_qb * block_q
 
 
 def group_admits_stacked(set_ids: np.ndarray, n_sets: int, n_parts: int,
@@ -261,6 +305,15 @@ def xam_search_multiset(key_bits: np.ndarray, set_ids: np.ndarray,
     n_sets)``, ``planes``/``valid`` the device-resident index planes.
     Returns the (Q,) int32 first matching valid way per query (-1 =
     miss) on the host — the one synchronisation of a lookup."""
+    out, slot = _multiset_dispatch(key_bits, set_ids, planes, valid,
+                                   block_q=block_q, scoring=scoring)
+    return out.cpu().numpy()[slot]
+
+
+def _multiset_dispatch(key_bits, set_ids, planes, valid, *, block_q,
+                       scoring):
+    """Pack and launch one search without waiting for it: returns the
+    padded (Q',) device result and each query's row in it."""
     key_bits = np.asarray(key_bits, np.int8)
     set_ids = np.asarray(set_ids, np.int64)
     n_sets = planes.shape[0]
@@ -273,7 +326,40 @@ def xam_search_multiset(key_bits: np.ndarray, set_ids: np.ndarray,
     out = xam_search_multiset_device(
         put(keys), put(masks), planes, valid, put(block_sets),
         put(live), block_q=block_q, scoring=scoring)
-    return out.cpu().numpy()[slot]
+    return out, slot
+
+
+def xam_search_multiset_sharded(key_bits: np.ndarray, set_ids: np.ndarray,
+                                planes_by_shard, valid_by_shard, *,
+                                block_q: int | None = None,
+                                scoring: str = "int8") -> np.ndarray:
+    """Fan a query batch out over set-sharded planes: queries split by
+    owning shard (``set_id // sets_per_shard``), then one shard-local
+    :func:`xam_search_multiset_device` launch per shard that holds
+    queries, against that shard's ``(sets_per_shard, R, C)`` planes.
+    Every launch is made before any result is read back.  Returns the
+    (Q,) int32 set-local first matching way, -1 = miss; with one shard
+    this is exactly :func:`xam_search_multiset`."""
+    if len(planes_by_shard) == 1:
+        return xam_search_multiset(key_bits, set_ids, planes_by_shard[0],
+                                   valid_by_shard[0], block_q=block_q,
+                                   scoring=scoring)
+    key_bits = np.asarray(key_bits, np.int8)
+    set_ids = np.asarray(set_ids, np.int64)
+    s_local = planes_by_shard[0].shape[0]
+    shard_ids = set_ids // s_local
+    pending = []
+    for k in np.unique(shard_ids):
+        sel = np.nonzero(shard_ids == k)[0]
+        out, slot = _multiset_dispatch(
+            key_bits[sel], set_ids[sel] - int(k) * s_local,
+            planes_by_shard[int(k)], valid_by_shard[int(k)],
+            block_q=block_q, scoring=scoring)
+        pending.append((sel, slot, out))
+    ways = np.empty(set_ids.shape[0], np.int32)
+    for sel, slot, out in pending:
+        ways[sel] = out.cpu().numpy()[slot]
+    return ways
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ Index knobs mirror ``launch/serve.py``; the edge's own are ``--port`` /
 ``--host``, ``--n-workers``, ``--max-queue``, ``--batch-window-ms``.
 ``--port 0`` binds an ephemeral port and prints it in the "listening
 on" line.  The reference's ``--mesh`` is dropped: the port runs one
-device, and ``--n-shards > 1`` raises.
+device, on which ``--n-shards`` set shards co-locate.
 """
 from __future__ import annotations
 
@@ -80,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-request access log")
     # index scaling / durability (same semantics as launch/serve.py)
     ap.add_argument("--n-shards", type=int, default=1,
-                    help="set-axis shards of the index (only 1 is ported)")
+                    help="set-axis shards of the index (must divide its 8 "
+                         "sets; co-located on the one device)")
     ap.add_argument("--sync-admit", action="store_true")
     ap.add_argument("--max-pending", type=int, default=None)
     ap.add_argument("--admit-policy", default="block",
@@ -110,10 +111,6 @@ def build_frontend(args, params: dict | None = None
     seeded random ones (``transformer.init_params(seed=0)``).  Separated
     from :func:`main` so tests can boot the real stack on an ephemeral
     port and drive it in-process."""
-    if args.n_shards != 1:
-        raise NotImplementedError(
-            f"--n-shards {args.n_shards}: the sharded index is not ported "
-            "yet (ROADMAP.md, Queue 1 item 3: logical shards on one GPU)")
     device = resolve_device(args.device)
     cfg = configs.get_arch(args.arch)
     if args.reduced:
@@ -125,7 +122,7 @@ def build_frontend(args, params: dict | None = None
     resume = not args.no_resume and transformer.resume_supported(cfg)
     fp_scheme = "prefix" if resume else "block"
     kv_kw = dict(n_sets=8, m_writes=args.m_writes, clock=args.wear_clock,
-                 fingerprint=fp_scheme,
+                 n_shards=args.n_shards, fingerprint=fp_scheme,
                  admit_after_reads=args.admit_after_reads)
     if args.lifetime_years is not None:
         kv_cfg = KVIndexConfig.with_lifetime(
@@ -158,7 +155,8 @@ def build_frontend(args, params: dict | None = None
     frontend = HttpFrontend(router, host=args.host, port=args.port,
                             verbose=args.verbose)
     print(f"[httpd] {cfg.name} on {device}: resume "
-          f"{'ON' if resume else 'off'}, admit policy={args.admit_policy} "
+          f"{'ON' if resume else 'off'}, index n_shards={args.n_shards}, "
+          f"admit policy={args.admit_policy} "
           f"max_pending={args.max_pending}, wear clock={args.wear_clock}")
     return frontend, admit_q
 

@@ -9,7 +9,8 @@ line: lookup -> prefill -> submit -> decode, closed- or open-loop.  The
 index, the admission queue and the model all live on ``--device``
 (default ``cuda``; without a visible card the launcher raises rather than
 run on the CPU).  Mesh placement flags are dropped: the port runs one
-device, and ``--n-shards > 1`` raises.
+device, so ``--n-shards`` set shards co-locate on it (the unsharded
+single-launch path).
 """
 from __future__ import annotations
 
@@ -191,7 +192,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--wear-clock", default="ops", choices=["ops", "wall"],
                     help="t_MWW cycle domain: index ops or wall time")
     ap.add_argument("--n-shards", type=int, default=1,
-                    help="set-axis shards of the index (only 1 is ported)")
+                    help="set-axis shards of the index (must divide its 8 "
+                         "sets; co-located on the one device)")
     ap.add_argument("--sync-admit", action="store_true",
                     help="admit inline instead of behind the async "
                          "AdmitQueue")
@@ -206,10 +208,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def serve(args: argparse.Namespace) -> ServeRun:
     """Build the index, queue and model from ``args``, serve the
     requests, drain the queue and print the reports."""
-    if args.n_shards != 1:
-        raise NotImplementedError(
-            f"--n-shards {args.n_shards}: the sharded index is not ported "
-            "yet (ROADMAP.md, port queue: multi-GPU index paths)")
     device = resolve_device(args.device)
     cfg = configs.get_arch(args.arch)
     if args.reduced:
@@ -225,20 +223,25 @@ def serve(args: argparse.Namespace) -> ServeRun:
         kv_cfg = KVIndexConfig.with_lifetime(
             t_life_years=args.lifetime_years, endurance=args.endurance,
             ops_per_second=args.ops_per_sec, m_writes=args.m_writes,
-            clock=args.wear_clock, n_sets=8, fingerprint=fp_scheme)
+            clock=args.wear_clock, n_sets=8, n_shards=args.n_shards,
+            fingerprint=fp_scheme)
         unit = "ops" if args.wear_clock == "ops" else "us of wall time"
         print(f"[serve] lifetime target {args.lifetime_years}y @ "
               f"{args.endurance:.0e} endurance -> t_MWW window = "
               f"{kv_cfg.window_ops} {unit}, M={kv_cfg.m_writes}")
     else:
         kv_cfg = KVIndexConfig(n_sets=8, m_writes=args.m_writes,
-                               clock=args.wear_clock,
+                               clock=args.wear_clock, n_shards=args.n_shards,
                                fingerprint=fp_scheme)
     idx = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore() if resume else None,
                          device=device)
     if not resume and not args.no_resume:
         print(f"[serve] resume path off: {cfg.name} has recurrent layers "
               "(prefix hits counted, prefill not skipped)")
+    if args.n_shards > 1:
+        print(f"[serve] index sharded over {args.n_shards} set shards "
+              f"({idx.sets_per_shard} sets each; co-located, 1 device "
+              "(collapsed to the unsharded single-launch path))")
     admit_q = AdmitQueue(idx, background=not args.sync_admit,
                          max_pending=args.max_pending,
                          policy=args.admit_policy)

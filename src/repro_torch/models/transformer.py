@@ -1,6 +1,6 @@
-"""Decoder stack for the serving path — port of the attention-only parts
-of ``repro/models/transformer.py`` (global and sliding-window local
-attention layers, dense MLPs).
+"""Decoder stack for the serving path — port of the attention parts of
+``repro/models/transformer.py`` (global and sliding-window local
+attention layers, each followed by a dense MLP or an MoE block).
 
 Parameters keep the reference's tree so tests compare leaf by leaf.  The
 layer pattern is factored by ``cfg.scan_groups()`` into ``n_groups``
@@ -12,6 +12,8 @@ blocks are not::
      "groups": {"b0": {"ln1": (G, D), "ln2": (G, D),
                        "attn": {"wq", "wk", "wv", "wo"}: (G, ...),
                        "mlp": {"w_up", "w_gate", "w_down"}: (G, ...)},
+                       # or, with cfg.n_experts, "moe": {"router",
+                       #   "w_up", "w_gate", "w_down"[, "dense"]}
                 "b1": ..., },
      "rem0": {"ln1": (D,), ...}, "rem1": ...}
 
@@ -21,8 +23,8 @@ plus ``rem0``, ``rem1`` (both local).  Caches and KV trees have the same
 keys with ``{"k", "v"}`` leaves (G, B, S, KV, dh) in a group and
 (B, S, KV, dh) in the remainder; a local block's decode cache is a ring
 of ``min(max_seq, sliding_window)`` slots.  The reference's ``lax.scan``
-over the groups is a Python loop.  MoE, SSM and shared-attention blocks
-are not ported yet and raise ``NotImplementedError``.
+over the groups is a Python loop.  SSM and shared-attention blocks are
+not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,21 +33,21 @@ import torch
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ArchConfig)
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.pytree import tree_leaves, tree_map
 
 DTYPE = layers.DTYPE
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md, Queue 1 item 4): the port runs "
-               "dense models of global and local attention layers")
+_NOT_PORTED = ("not ported yet (ROADMAP.md, Queue 1 item 4: SSM and shared "
+               "attention, and the training forward): the port runs global "
+               "and local attention layers with dense MLP or MoE blocks")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.layer_pattern())
-    if not kinds <= {ATTN_GLOBAL, ATTN_LOCAL} or cfg.n_experts:
+    if not kinds <= {ATTN_GLOBAL, ATTN_LOCAL}:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}"
-            f"{' with MoE' if cfg.n_experts else ''} are {_NOT_PORTED}")
+            f"{cfg.name}: layer kinds {sorted(kinds)} are {_NOT_PORTED}")
 
 
 def _blocks(cfg: ArchConfig):
@@ -91,13 +93,18 @@ def param_shapes(cfg: ArchConfig) -> dict:
         embed["unembed"] = (d, cfg.vocab_size)
 
     def block(kind, lead):
+        out = {"ln1": lead + (d,),
+               "attn": {"wq": lead + (d, hd), "wk": lead + (d, kvd),
+                        "wv": lead + (d, kvd), "wo": lead + (hd, d)},
+               "ln2": lead + (d,)}
+        if cfg.n_experts:
+            out["moe"] = moe.moe_shapes(cfg, lead)
+            return out
         mlp = {"w_up": lead + (d, cfg.d_ff), "w_down": lead + (cfg.d_ff, d)}
         if cfg.mlp_gated:
             mlp["w_gate"] = lead + (d, cfg.d_ff)
-        return {"ln1": lead + (d,),
-                "attn": {"wq": lead + (d, hd), "wk": lead + (d, kvd),
-                         "wv": lead + (d, kvd), "wo": lead + (hd, d)},
-                "ln2": lead + (d,), "mlp": mlp}
+        out["mlp"] = mlp
+        return out
 
     return {"embed": embed, "final_ln": (d,), **_stacked(cfg, block)}
 
@@ -106,7 +113,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: str | torch.device = "cuda") -> dict:
     """Random parameters on ``device`` from a seeded ``torch.Generator``
     on that device, with the reference's ``dense_init`` scales
-    (``fan_in ** -0.5``, 0.02 for the embedding, zero norm weights).  The
+    (``fan_in ** -0.5``, 0.02 for the embedding and the MoE router, zero
+    norm weights).  The
     bits differ from JAX's; tests carry JAX's weights across with
     :func:`params_from_numpy` instead.  Layers are drawn one at a time so
     the float32 draw never holds more than one layer's leaf."""
@@ -118,14 +126,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     def fill(path, shape):
         if path[-1] in ("ln1", "ln2", "final_ln"):
             return torch.zeros(shape, dtype=DTYPE, device=dev)
-        if path[0] == "embed":
-            scale = 0.02 if path[-1] == "embed" else None
+        scale = 0.02 if path[-1] in ("embed", "router") else None
+        if path[0] != "groups":               # embedding or remainder
             return layers.dense_init(gen, shape, scale=scale, device=dev)
-        if path[0] != "groups":               # a remainder block
-            return layers.dense_init(gen, shape, device=dev)
         out = torch.empty(shape, dtype=DTYPE, device=dev)
         for i in range(shape[0]):             # stacked: one layer at a time
-            out[i] = layers.dense_init(gen, shape[1:], device=dev)
+            out[i] = layers.dense_init(gen, shape[1:], scale=scale,
+                                       device=dev)
         return out
 
     def walk(tree, path=()):
@@ -234,9 +241,17 @@ def _write_cache(bc: dict, k_all: torch.Tensor, v_all: torch.Tensor,
         bc["v"][:, :s_tot] = v_all.to(DTYPE)
 
 
+def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A block's feed-forward half: its MoE block, or its dense MLP."""
+    if "moe" in p:
+        return moe.moe_block(p["moe"], h, cfg)
+    return layers.mlp_block(p["mlp"], h, cfg)
+
+
 def _apply_block(p: dict, cfg: ArchConfig, key: str, g: int | None,
                  x: torch.Tensor, x32: torch.Tensor | None, attend):
-    """One attention block, ``x + attend(norm(x))`` then ``+ mlp(norm)``;
+    """One attention block, ``x + attend(norm(x))`` then ``+ ffn(norm)``
+    (the MLP, or the MoE block of an MoE config);
     returns the bf16 residual and, inside a group, its float32 sum.
 
     Inside a group each norm reads the float32 sum of the residual add
@@ -252,7 +267,7 @@ def _apply_block(p: dict, cfg: ArchConfig, key: str, g: int | None,
     s1 = x.float() + attend(h).float()
     x = s1.to(DTYPE)
     h2 = layers.rms_norm(s1 if fused else x, p["ln2"]).to(DTYPE)
-    s2 = x.float() + layers.mlp_block(p["mlp"], h2, cfg).float()
+    s2 = x.float() + _ffn(p, h2, cfg).float()
     return s2.to(DTYPE), s2 if fused else None
 
 

@@ -1,5 +1,4 @@
-"""MonarchKVIndex on one device — port of ``repro/serve/kv_index.py``
-(single partition).
+"""MonarchKVIndex on one device — port of ``repro/serve/kv_index.py``.
 
 A paged KV prefix cache whose INDEX is a Monarch flat-CAM: every 16-token
 chunk is fingerprinted (murmur3), each fingerprint maps to one of
@@ -30,8 +29,17 @@ partial); equality is all the index asks of it, and every report views it
 back as uint32.  Lookups (serving thread) and admissions (``AdmitQueue``
 worker) both run on the device's default stream, so the card orders them.
 
-``n_shards > 1`` and the ``"fanout"`` dispatch paths are not ported yet
-(ROADMAP.md, port queue: multi-GPU index paths).
+SHARDS: ``n_shards`` splits the sets into contiguous blocks
+(``geometry.shard_of_set``).  On one card every shard co-locates, and
+under ``dispatch="auto"`` the state is one partition (``n_parts == 1``):
+the path above, bit for bit.  ``dispatch="fanout"`` keeps the reference's
+differential oracles: state in one partition per logical shard, one
+search launch per shard that holds queries, admission by the
+per-candidate :func:`_admit_batch` scan of each partition, rotation
+through the global views.  Every hit, install, eviction, throttle and
+wear report is the same at every shard count under either dispatch.
+The ``shard_map`` paths that spread partitions over several devices are
+not ported (one card).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import geometry
 from repro_torch.core import lifetime as lifetime_mod
 from repro_torch.core import wear
 from repro_torch.core.timing import SECONDS_PER_YEAR, t_mww_seconds
@@ -56,10 +65,6 @@ CHUNK_TOKENS = 16
 ROTATE_STRIDE = 7          # prime set stride per rotation (§8)
 ADMIT_BUCKET_LO = 8        # pow2 bucket floor for admit batch shapes
 
-_MULTI_GPU = ("not ported yet (ROADMAP.md, port queue: multi-GPU index "
-              "paths)")
-
-
 @dataclasses.dataclass
 class KVIndexConfig:
     """Serving-index geometry and §8 durability knobs (fields as in the
@@ -68,9 +73,10 @@ class KVIndexConfig:
     ``admit_after_reads``, the per-way write budget ``m_writes`` per
     t_MWW window of ``window_ops`` cycles in the ``clock`` domain
     ("ops" or "wall" microseconds), ``rotate_every`` admissions between
-    rotary remaps, ``n_shards`` (1 in the port), ``plane_format`` ("int8"
-    or "packed8"; None reads ``REPRO_PLANE_FORMAT``) and the chunk
-    ``fingerprint`` scheme ("block" or "prefix")."""
+    rotary remaps, ``n_shards`` set shards (dividing ``n_sets``),
+    ``plane_format`` ("int8" or "packed8"; None reads
+    ``REPRO_PLANE_FORMAT``) and the chunk ``fingerprint`` scheme ("block"
+    or "prefix")."""
     n_sets: int = 32
     set_ways: int = 512           # CAM columns per set
     key_bits: int = 32
@@ -116,8 +122,11 @@ class KVIndexStats:
     throttled: int = 0            # t_MWW window exhausted
     evictions: int = 0
     rotations: int = 0
-    searches: int = 0             # lookup launches (1 per batch)
-    admit_calls: int = 0          # admission dispatches (1 per batch)
+    searches: int = 0             # lookup launches (1 per batch; 1 per
+                                  # shard holding queries on "fanout")
+    admit_calls: int = 0          # admission dispatches (1 per batch; 1
+                                  # per partition holding candidates on
+                                  # "fanout")
 
 
 class KVSlabStore:
@@ -267,6 +276,109 @@ def _admit_rounds(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
     return ws, outs
 
 
+def _where_tree(cond: torch.Tensor, new, old):
+    """``torch.where(cond, new, old)`` over every tensor of a (nested)
+    dataclass such as a ``WearState``."""
+    if dataclasses.is_dataclass(old):
+        return type(old)(**{
+            f.name: _where_tree(cond, getattr(new, f.name),
+                                getattr(old, f.name))
+            for f in dataclasses.fields(old)})
+    return torch.where(cond, new, old)
+
+
+def _admit_batch(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
+                 admit_after: int, sets, fps, bitcols, cycles, touches):
+    """The per-candidate admission scan of one partition (the reference's
+    ``_admit_batch``, the ``admit_dispatch="fanout"`` oracle): candidates
+    one after another in batch order, each through the whole pipeline —
+    residency probe, no-allocate gate, t_MWW throttle, cold-victim way
+    selection, column install and §8 ``wear.record_write`` — so later
+    candidates see earlier installs and evictions.  A Python loop over
+    the candidates on device tensors; no step reads back to the host.
+    The reference pads the batch to a pow2 with inactive lanes, which
+    change neither the state nor a kept output, so only the real
+    candidates run.  Updates ``st`` in place; returns ``(wear_state,
+    outs)`` with the decision tensors in candidate order."""
+    bits, valid, fp_of, read_after = (st["bits"], st["valid"], st["fp_of"],
+                                      st["read_after"])
+    counter, set_writes = st["counter"], st["set_writes"]
+    n_ways = valid.shape[1]
+    dev = valid.device
+    iota = torch.arange(n_ways, dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    names = ("is_res", "skipped", "throttled", "install", "way", "evict",
+             "old_fp")
+    rows = []
+    for i in range(sets.shape[0]):
+        s = sets[i].long()
+        fp, bitcol, cycle, touch = fps[i], bitcols[i], cycles[i], touches[i]
+
+        vrow = valid[s].clone()
+        frow = fp_of[s].clone()
+        hitv = (vrow == 1) & (frow == fp)
+        is_res = hitv.any()
+        res_w = hitv.to(torch.int32).argmax()
+        read_after[s, res_w] += is_res.to(torch.int32)
+
+        skipped = ~is_res & (touch < admit_after)
+        locked = wear.is_locked(ws, s, cycle)
+        over = wear.window_would_exceed(ws, wdyn, s, cycle)
+        throttled = ~is_res & ~skipped & (locked | over)
+        install = ~is_res & ~skipped & ~throttled
+
+        free = vrow == 0
+        has_free = free.any()
+        free_w = free.to(torch.int32).argmax()
+        order = (iota + counter[s]) % n_ways
+        cold = read_after[s][order.long()] == 0
+        victim = torch.where(cold.any(),
+                             order[cold.to(torch.int32).argmax()], order[0])
+        way = torch.where(has_free, free_w, victim).to(torch.int32)
+        wl = way.long()
+        evict = install & ~has_free
+        old_fp = frow[wl]
+        counter[s] += evict.to(torch.int32)
+
+        bits[s, :, wl] = torch.where(install, bitcol.to(bits.dtype),
+                                     bits[s, :, wl])
+        valid[s, wl] = torch.where(install, 1, vrow[wl]).to(torch.int8)
+        fp_of[s, wl] = torch.where(install, fp, old_fp)
+        read_after[s, wl] = torch.where(install, 0, read_after[s, wl]).to(
+            torch.int32)
+        set_writes[s] += install.to(torch.int32)
+
+        ws2, _rot, _fl = wear.record_write(ws, wdyn, s, one, cycle)
+        ws = _where_tree(install, ws2, ws)
+        rows.append((is_res, skipped, throttled, install, way, evict,
+                     old_fp))
+    outs = {k: torch.stack([r[j] for r in rows]) if rows else
+            torch.empty(0, device=dev) for j, k in enumerate(names)}
+    return ws, outs
+
+
+def _shard_property(name: str, doc: str, settable: bool = True):
+    """Global view over a per-partition list of tensors: THE tensor of
+    partition 0 when there is one partition, else the partitions
+    concatenated in set order.  Assigning a global tensor re-splits it
+    into one contiguous block per partition."""
+    def get(self):
+        parts = getattr(self, name)
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(parts, dim=0)
+
+    def set_(self, value):
+        parts = getattr(self, name)
+        if len(parts) == 1:
+            parts[0] = value
+        else:
+            setattr(self, name, [
+                value[self._slice(k)].clone() for k in range(self.n_parts)])
+
+    return property(get, set_ if settable else None, None, doc)
+
+
 class MonarchKVIndex:
     """Monarch flat-CAM prefix index on one device (see module docstring).
 
@@ -274,8 +386,16 @@ class MonarchKVIndex:
     ----------
     cfg : KVIndexConfig, optional
         Geometry/durability knobs; default-constructed per instance.
-    dispatch, admit_dispatch : str
-        Only ``"auto"`` (and ``None`` for ``admit_dispatch``) is ported.
+    dispatch : {"auto", "fanout"}
+        ``"auto"``: one partition on the card (every shard co-located),
+        one search launch per lookup, the round-grid admission.
+        ``"fanout"``: the reference's differential oracle — one partition
+        per logical shard, one search launch per shard holding queries,
+        rotation through the global views.  No result depends on it.
+    admit_dispatch : {"auto", "fanout"} or None
+        Admission policy; None follows ``dispatch``.  ``"fanout"`` runs
+        the per-candidate :func:`_admit_batch` scan of each partition
+        holding candidates.  Fanout storage admits only through fanout.
     now_fn : callable, optional
         Wall-clock source for ``clock="wall"`` configs (monotonic seconds;
         default ``time.monotonic``).  Never consulted under ``clock="ops"``.
@@ -288,12 +408,20 @@ class MonarchKVIndex:
     Attributes
     ----------
     bits, valid, fp_of, read_after, set_writes, counter : torch.Tensor
-        The CAM state on ``device``: ``(n_sets, key_bits, set_ways)`` int8
-        stored bits (``(n_sets, key_bits // 8, set_ways)`` uint8 packed
-        words under ``plane_format="packed8"``), ``(n_sets, set_ways)``
-        validity (int8), fingerprint (int32 holding the uint32 bit
-        pattern) and D̄&R̄ (int32) planes, and the ``(n_sets,)`` int32
-        install and replacement counters.
+        Global views of the CAM state on ``device``: ``(n_sets,
+        key_bits, set_ways)`` int8 stored bits (``(n_sets, key_bits // 8,
+        set_ways)`` uint8 packed words under ``plane_format="packed8"``),
+        ``(n_sets, set_ways)`` validity (int8), fingerprint (int32
+        holding the uint32 bit pattern) and D̄&R̄ (int32) planes, and the
+        ``(n_sets,)`` int32 install and replacement counters.  With one
+        partition these are THE state tensors; with several, a
+        concatenation of the partitions' (assigning the first four
+        re-splits them).
+    n_shards, sets_per_shard : int
+        Logical set shards and the sets each owns.
+    n_parts, sets_per_part : int
+        Partitions holding state: 1 under ``"auto"`` (one card),
+        ``n_shards`` under ``"fanout"``.
 
     Examples
     --------
@@ -310,15 +438,14 @@ class MonarchKVIndex:
                  dispatch: str = "auto", admit_dispatch: str | None = None,
                  now_fn=None, slab_store: KVSlabStore | None = None,
                  device: str | torch.device = "cuda"):
+        assert dispatch in ("auto", "fanout"), dispatch
+        if admit_dispatch is None:
+            admit_dispatch = dispatch
+        assert admit_dispatch in ("auto", "fanout"), admit_dispatch
+        assert not (dispatch == "fanout" and admit_dispatch == "auto"), (
+            "dispatch='fanout' storage only supports fanout admission")
         self.cfg = KVIndexConfig() if cfg is None else cfg
         c = self.cfg
-        if dispatch != "auto" or admit_dispatch not in (None, "auto"):
-            raise NotImplementedError(
-                f"dispatch={dispatch!r}/admit_dispatch={admit_dispatch!r}: "
-                f"the 'fanout' reference paths are {_MULTI_GPU}")
-        if c.n_shards != 1:
-            raise NotImplementedError(
-                f"n_shards={c.n_shards}: the sharded index is {_MULTI_GPU}")
         if c.clock not in wear.CLOCKS:
             raise ValueError(
                 f"KVIndexConfig.clock={c.clock!r}: expected one of "
@@ -333,6 +460,16 @@ class MonarchKVIndex:
         self._now_fn = time.monotonic if now_fn is None else now_fn
         self._wall_t0 = self._now_fn() if self.clock == "wall" else 0.0
         self._wall_folded = 0       # cycles removed by clock rebases
+        self.dispatch = dispatch
+        self.admit_dispatch = admit_dispatch
+        self.n_shards = c.n_shards
+        self.sets_per_shard = geometry.sets_per_shard(c.n_sets, c.n_shards)
+        # One card: under "auto" every shard co-locates in one partition
+        # (sharding only relabels who stores a set); "fanout" keeps one
+        # partition per logical shard.
+        self.n_parts = c.n_shards if dispatch == "fanout" else 1
+        self.sets_per_part = c.n_sets // self.n_parts
+        s_loc = self.sets_per_part
         self.plane_format = resolve_plane_format(c.plane_format)
         if self.plane_format == "packed8" and c.key_bits % 8 != 0:
             raise ValueError(
@@ -340,25 +477,31 @@ class MonarchKVIndex:
                 f"got key_bits={c.key_bits}")
         self.plane_rows = (c.key_bits if self.plane_format == "int8"
                            else c.key_bits // 8)
-        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
         plane_dtype = torch.int8 if self.plane_format == "int8" else torch.uint8
-        self.bits = z((c.n_sets, self.plane_rows, c.set_ways), plane_dtype)
-        self.valid = z((c.n_sets, c.set_ways), torch.int8)
-        self.fp_of = z((c.n_sets, c.set_ways), torch.int32)
-        self.read_after = z((c.n_sets, c.set_ways), torch.int32)
-        self.set_writes = z((c.n_sets,), torch.int32)
-        self.counter = z((c.n_sets,), torch.int32)
+        parts = lambda shape, dt: [
+            torch.zeros(shape, dtype=dt, device=self.device)
+            for _ in range(self.n_parts)]
+        self._bits = parts((s_loc, self.plane_rows, c.set_ways), plane_dtype)
+        self._valid = parts((s_loc, c.set_ways), torch.int8)
+        self._fp_of = parts((s_loc, c.set_ways), torch.int32)
+        self._read_after = parts((s_loc, c.set_ways), torch.int32)
+        self._set_writes = parts((s_loc,), torch.int32)
+        self._counters = parts((s_loc,), torch.int32)
         # §8 wear state with serving knobs: window = window_ops, budget =
         # set_ways * m_writes, every rotate signal disabled (wr_shift=32:
         # int32 MSB distances never reach 32) — which is what makes the
-        # vectorized record_write_rows exact.
+        # vectorized record_write_rows exact.  One state per partition,
+        # over that partition's sets.
         self.wear_cfg = wear.WearConfig(
             n_supersets=c.n_sets, m_writes=c.m_writes,
             dc_limit=1 << 30, wc_limit=1 << 30, wr_shift=32,
             t_mww_cycles=c.window_ops, blocks_per_superset=c.set_ways,
             clock=c.clock)
         self.wear_dyn = wear.dyn_of(self.wear_cfg, self.device)
-        self.wear_state = wear.init_state(self.wear_cfg, self.device)
+        self._wear_states = wear.shard_states(self.wear_cfg, self.n_parts,
+                                              self.device)
+        self._wear_dyns = [self.wear_dyn] * self.n_parts
+        self._admit_after = [c.admit_after_reads] * self.n_parts
         # Host-side policy shadow (map + mirrors).
         self.valid_np = np.zeros((c.n_sets, c.set_ways), bool)
         self.fp_of_np = np.zeros((c.n_sets, c.set_ways), np.uint32)
@@ -370,6 +513,35 @@ class MonarchKVIndex:
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _slice(self, k: int) -> slice:
+        """Global-set slice owned by partition k."""
+        return geometry.shard_set_slice(k, self.cfg.n_sets, self.n_parts)
+
+    def _part_state(self, k: int) -> dict:
+        return {"bits": self._bits[k], "valid": self._valid[k],
+                "fp_of": self._fp_of[k], "read_after": self._read_after[k],
+                "set_writes": self._set_writes[k],
+                "counter": self._counters[k]}
+
+    bits = _shard_property("_bits", "stored-bit planes, global view")
+    valid = _shard_property("_valid", "validity planes, global view")
+    fp_of = _shard_property("_fp_of", "fingerprint planes, global view")
+    read_after = _shard_property(
+        "_read_after", "D̄&R̄ re-read counters, global view")
+    set_writes = _shard_property(
+        "_set_writes", "per-set install counters, global view",
+        settable=False)
+    counter = _shard_property(
+        "_counters", "per-set replacement counters, global view",
+        settable=False)
+
+    @property
+    def wear_state(self) -> wear.WearState:
+        """Global §8 wear view: THE partition's state with one partition,
+        else the per-set fields concatenated in partition order
+        (``wear.concat_states``) — reporting only."""
+        return wear.concat_states(self._wear_states)
 
     # ------------------------------------------------------------------
     def _set_of(self, fps: np.ndarray) -> np.ndarray:
@@ -399,8 +571,8 @@ class MonarchKVIndex:
         (stamps shift in lockstep, so no decision changes)."""
         if self._clock_cycles() < wear.CLOCK_REBASE_AT:
             return
-        self.wear_state = wear.rebase_clock(self.wear_state,
-                                            wear.CLOCK_REBASE_AT)
+        self._wear_states = [wear.rebase_clock(ws, wear.CLOCK_REBASE_AT)
+                             for ws in self._wear_states]
         if self.clock == "ops":
             self.ops_total -= wear.CLOCK_REBASE_AT
         else:
@@ -416,7 +588,8 @@ class MonarchKVIndex:
 
     def lookup(self, tokens: np.ndarray) -> np.ndarray:
         """(B, S) tokens -> (B, S // 16) bool: True where the chunk is
-        cached.  ONE fused search launch for the whole batch."""
+        cached.  ONE fused search launch for the whole batch (one per
+        shard holding queries on the ``"fanout"`` oracle)."""
         self._maybe_rebase_clock()
         fps = self.fingerprints(tokens)
         flat = fps.reshape(-1)
@@ -426,9 +599,14 @@ class MonarchKVIndex:
         sets = self._set_of(flat)
         key_bits = xam_ops.words_to_bits_np(
             flat.astype(np.uint32), self.cfg.key_bits)
-        ways = xam_ops.xam_search_multiset(key_bits, sets, self.bits,
-                                           self.valid)
-        self.stats.searches += 1
+        if self.n_parts == 1:
+            ways = xam_ops.xam_search_multiset(key_bits, sets, self._bits[0],
+                                               self._valid[0])
+            self.stats.searches += 1
+        else:
+            ways = xam_ops.xam_search_multiset_sharded(
+                key_bits, sets, self._bits, self._valid)
+            self.stats.searches += len(np.unique(sets // self.sets_per_part))
         hit = ways >= 0
         self.stats.chunk_hits += int(hit.sum())
         self.stats.chunk_misses += int((~hit).sum())
@@ -443,10 +621,12 @@ class MonarchKVIndex:
 
     def admit_fps(self, fps: np.ndarray):
         """Batched admission of (unique, order-preserved) uint32
-        fingerprints: one round-grid dispatch, one host transfer of the
-        decisions, then the host shadow-map and slab-store fold in batch
-        order, and a rotation when the admission count crosses a
-        ``rotate_every`` multiple."""
+        fingerprints: one round-grid dispatch (the per-partition scans on
+        ``admit_dispatch="fanout"``), one host transfer of the decisions,
+        then the host shadow-map and slab-store fold in batch order, and
+        a rotation when the admission count crosses a ``rotate_every``
+        multiple.  Both dispatches equal admitting the fingerprints one
+        at a time in batch order, at any shard count."""
         fps = np.asarray(fps, np.uint32)
         b = int(fps.size)
         if b == 0:
@@ -462,7 +642,9 @@ class MonarchKVIndex:
             cycles = (self.ops_total + np.arange(b)).astype(np.int32)
         else:
             cycles = np.full(b, self._clock_cycles(), np.int32)
-        skip, thr, inst, way, evict, old_fp = self._admit_stacked(
+        admit = (self._admit_stacked if self.admit_dispatch == "auto"
+                 else self._admit_fanout)
+        skip, thr, inst, way, evict, old_fp = admit(
             fps, sets, touches, bitcols, cycles)
         self.ops_total += b
 
@@ -517,11 +699,9 @@ class MonarchKVIndex:
                   for lo, hi in zip(bounds[:-1], bounds[1:])]
         xam_ops.count_launch("ADMIT_LAUNCH_COUNT")
         self.stats.admit_calls += 1
-        st = {"bits": self.bits, "valid": self.valid, "fp_of": self.fp_of,
-              "read_after": self.read_after, "set_writes": self.set_writes,
-              "counter": self.counter}
-        self.wear_state, outs = _admit_rounds(
-            st, self.wear_state, self.wear_dyn, c.admit_after_reads, rounds,
+        self._wear_states[0], outs = _admit_rounds(
+            self._part_state(0), self._wear_states[0], self._wear_dyns[0],
+            self._admit_after[0], rounds,
             self._put(sets[order]), self._put(fps[order].view(np.int32)),
             self._put(bitcols[order]), self._put(cycles[order]),
             self._put(touches[order]))
@@ -534,11 +714,45 @@ class MonarchKVIndex:
         return (res["skipped"], res["throttled"], res["install"], res["way"],
                 res["evict"], res["old_fp"].view(np.uint32))
 
+    def _admit_fanout(self, fps, sets, touches, bitcols, cycles):
+        """The per-partition oracle (``admit_dispatch="fanout"``): the
+        candidates grouped by owning partition (batch order kept within
+        each, cycle stamps keeping their global batch position), one
+        :func:`_admit_batch` scan per partition holding candidates, the
+        decisions scattered back to batch order so the host fold in
+        :meth:`admit_fps` is shared."""
+        b = int(fps.size)
+        part = sets // self.sets_per_part
+        res = {"skipped": np.zeros(b, bool), "throttled": np.zeros(b, bool),
+               "install": np.zeros(b, bool), "way": np.zeros(b, np.int32),
+               "evict": np.zeros(b, bool), "old_fp": np.zeros(b, np.int32)}
+        launches = []
+        for k in np.unique(part):
+            k = int(k)
+            sel = np.nonzero(part == k)[0]
+            self._wear_states[k], outs = _admit_batch(
+                self._part_state(k), self._wear_states[k],
+                self._wear_dyns[k], self._admit_after[k],
+                self._put(sets[sel] - k * self.sets_per_part),
+                self._put(fps[sel].view(np.int32)), self._put(bitcols[sel]),
+                self._put(cycles[sel]), self._put(touches[sel]))
+            xam_ops.count_launch("ADMIT_LAUNCH_COUNT")
+            self.stats.admit_calls += 1
+            launches.append((sel, outs))
+        for sel, outs in launches:
+            for key, v in res.items():
+                v[sel] = outs[key].cpu().numpy()
+        return (res["skipped"], res["throttled"], res["install"], res["way"],
+                res["evict"], res["old_fp"].view(np.uint32))
+
     def _rotate(self):
         """Rotary remap (prime stride 7): roll the set planes by the
-        permutation ``set -> set + 7 (mod n_sets)`` while the ``_set_of``
-        offset moves in lockstep.  Wear/replacement counters track
-        PHYSICAL sets and stay.  An ``AdmitQueue`` drains first."""
+        global permutation ``set -> set + 7 (mod n_sets)`` while the
+        ``_set_of`` offset moves in lockstep.  With several partitions
+        (the ``"fanout"`` oracle) the roll goes through the global views:
+        the getter concatenates, the setter re-splits.  Wear and
+        replacement counters track PHYSICAL sets and stay.  An
+        ``AdmitQueue`` drains first."""
         n = self.cfg.n_sets
         shift = ROTATE_STRIDE % n
         self.offset = (self.offset + ROTATE_STRIDE) % n
@@ -582,9 +796,12 @@ class MonarchKVIndex:
         w = self.write_distribution().astype(np.float64)
         mean = float(w.mean()) if w.size else 0.0
         cyc = min(self._clock_cycles(), 2 ** 31 - 1)
-        throttled_now = int(wear.window_would_exceed(
-            self.wear_state, self.wear_dyn,
-            torch.arange(self.cfg.n_sets, device=self.device), cyc).sum())
+        throttled_now = sum(
+            int(wear.window_would_exceed(
+                self._wear_states[k], self._wear_dyns[k],
+                torch.arange(self.sets_per_part, device=self.device),
+                cyc).sum())
+            for k in range(self.n_parts))
         return {
             "installs_per_set_max": float(w.max()) if w.size else 0.0,
             "installs_per_set_mean": mean,

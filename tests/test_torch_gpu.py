@@ -465,3 +465,149 @@ def test_httpd_edge_on_the_card():
     assert docs[1]["hit_chunks"] == 3 and docs[1]["resumed_chunks"] == 2
     assert docs[1]["tokens"] == docs[0]["tokens"]
     assert xam.LAUNCH_COUNT - before == q.index.stats.searches == 2
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: logical index shards and the MoE block on the card.
+# ---------------------------------------------------------------------------
+
+def _index_state(idx) -> dict:
+    ws = idx.wear_state
+    return {"bits": idx.bits.cpu(), "valid": idx.valid.cpu(),
+            "fp_of": idx.fp_of.cpu(), "read_after": idx.read_after.cpu(),
+            "set_writes": idx.set_writes.cpu(), "counter": idx.counter.cpu(),
+            "window_writes": ws.window_writes.cpu(),
+            "window_start": ws.window_start.cpu(),
+            "locked_until": ws.locked_until.cpu(),
+            "write_counter": ws.write_counter.cpu(),
+            "slot_of": dict(idx.slot_of), "report": idx.wear_report()}
+
+
+def _assert_state_equal(a: dict, b: dict, msg):
+    for k, v in a.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, b[k]), (msg, k)
+        else:
+            assert v == b[k], (msg, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane_format", ["int8", "packed8"])
+def test_shards_on_card_match_cpu(plane_format):
+    """Phase 3c (a) at 12 ops: indexes of 1, 2 and 4 shards under
+    "auto" and "fanout" on the card against a one-shard CPU index after
+    every op; one search launch a lookup under "auto", one per shard
+    holding queries under "fanout"."""
+    _needs_card()
+    from repro_torch.data.pipeline import fingerprint_blocks
+    from repro_torch.serve.kv_index import KVIndexConfig, MonarchKVIndex
+    cfg = dict(n_sets=8, set_ways=4, admit_after_reads=1, m_writes=1,
+               window_ops=64, rotate_every=1 << 30,
+               plane_format=plane_format)
+    card = {(n, d): MonarchKVIndex(KVIndexConfig(n_shards=n, **cfg),
+                                   dispatch=d)
+            for n in (1, 2, 4) for d in ("auto", "fanout")}
+    cpu = MonarchKVIndex(KVIndexConfig(**cfg), device="cpu")
+    rng = np.random.default_rng(17)
+    for step in range(12):
+        toks = rng.integers(1, 600, (2, 96)).astype(np.int32)
+        op = rng.random()
+        if op < 0.6:
+            fps = np.unique(fingerprint_blocks(toks, 16).ravel())
+            for _ in range(2 if op < 0.4 else 1):     # a re-offer installs
+                for idx in (cpu, *card.values()):
+                    idx.admit_fps(fps)
+        elif op < 0.9:
+            want = cpu.lookup(toks)
+            sets = cpu._set_of(cpu.fingerprints(toks).ravel())
+            for (n, d), idx in card.items():
+                before = ops.LAUNCH_COUNT
+                np.testing.assert_array_equal(idx.lookup(toks), want)
+                expect = (1 if d == "auto" else
+                          len(np.unique(sets // idx.sets_per_part)))
+                assert ops.LAUNCH_COUNT - before == expect, (n, d)
+        else:
+            for idx in (cpu, *card.values()):
+                idx._rotate()
+        want = _index_state(cpu)
+        for key, idx in card.items():
+            assert idx.bits.is_cuda
+            _assert_state_equal(_index_state(idx), want, (step, key))
+    assert cpu.stats.admissions and cpu.stats.admission_skips
+
+
+@pytest.fixture
+def exact_bf16_gemms():
+    """bf16 GEMMs reduce in float32 on the card, as ``chip_smoke.py``
+    sets them and as the CPU does."""
+    m = torch.backends.cuda.matmul
+    old = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    yield
+    m.allow_bf16_reduced_precision_reduction = old
+
+
+def _moe_cfg(**kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("qwen3-moe-30b-a3b").reduced(), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["gather", "einsum"])
+@pytest.mark.parametrize("s", [1, 40])
+def test_moe_block_on_card_matches_cpu(s, dispatch, exact_bf16_gemms):
+    """Phase 3c (b) at reduced width (d_model 128, 8 experts, top-2,
+    binding capacity at S = 40): the card's expert ids equal the CPU's
+    where the k-th/(k+1)-th router gap exceeds 1e-6, and its outputs are
+    within rtol 1e-2/atol 5e-2 of the CPU's but for at most 0.1% of them,
+    none further than 0.5 — ``chip_smoke.py``'s ceilings: the outputs
+    (up to ~60 at the reference's init scales) are sums of gated bf16
+    expert outputs, and where they cancel, an ulp of one contribution
+    that the GEMMs' accumulation order moved exceeds the bound."""
+    _needs_card()
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_map
+    cfg = _moe_cfg(moe_dispatch=dispatch, capacity_factor=0.5)
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    p_cpu = tree_map(lambda a: a.cpu(), p)
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (2, s, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    y, ix, _ = moe.moe_block(p, x.cuda(), cfg, return_routing=True)
+    yc, ixc, probs = moe.moe_block(p_cpu, x, cfg, return_routing=True)
+    top = probs.topk(cfg.top_k + 1, dim=-1).values
+    decided = (top[..., -2] - top[..., -1]) > 1e-6
+    assert torch.equal(ix.cpu().sort(-1).values[decided],
+                       ixc.sort(-1).values[decided])
+    rows = decided.all(-1)          # a near tie may move its group's drops
+    assert rows.any()
+    a, b = y.float().cpu()[rows], yc.float()[rows]
+    diff = (a - b).abs()
+    assert float((diff > ATOL + RTOL * b.abs()).float().mean()) <= 1e-3
+    assert float(diff.max()) <= 0.5
+    assert torch.equal(y, moe.moe_block(p, x.cuda(), cfg))   # deterministic
+
+
+@pytest.mark.gpu
+def test_moe_layers_on_card_match_cpu(exact_bf16_gemms):
+    """Reduced qwen3-moe (4 layers) on the card and on the CPU: prefill
+    40 tokens and 8 greedy decode steps (the CPU's tokens fed to both),
+    finite logits, greedy tokens equal under the margin rule."""
+    _needs_card()
+    from repro_torch.models import transformer
+    from repro_torch.pytree import tree_map
+    cfg = _moe_cfg()
+    params = transformer.init_params(cfg, seed=2, device="cuda")
+    params_cpu = tree_map(lambda a: a.cpu(), params)
+    toks = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 40))
+    lg, cache = transformer.prefill(params, cfg, {"tokens": toks}, 48)
+    lc, cache_c = transformer.prefill(params_cpu, cfg, {"tokens": toks}, 48)
+    for t in range(8):
+        assert torch.isfinite(lg).all(), t
+        top = lc.topk(2, dim=-1).values
+        assert _margin_agree(lg.argmax(-1).cpu(), lc.argmax(-1),
+                             top[:, 0] - top[:, 1]), t
+        nxt = lc.argmax(-1)[:, None].numpy()
+        lg, cache = transformer.decode_step(params, cfg, nxt, cache, 40 + t)
+        lc, cache_c = transformer.decode_step(params_cpu, cfg, nxt, cache_c,
+                                              40 + t)

@@ -92,6 +92,52 @@ def test_shard_arithmetic(n_sets, n_shards):
         t_geo.sets_per_shard(n_sets, 3)
 
 
+@pytest.mark.parametrize("n_sets,n_shards", [(8, 1), (8, 2), (8, 4),
+                                              (32, 8)])
+def test_shard_of_set(n_sets, n_shards):
+    ids = np.arange(n_sets)
+    want = j_geo.shard_of_set(ids, n_sets, n_shards)
+    got = t_geo.shard_of_set(torch.arange(n_sets), n_sets, n_shards)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _eq(t_geo.shard_of_set(ids, n_sets, n_shards), want)
+    with pytest.raises(ValueError):
+        t_geo.shard_of_set(ids, n_sets, 3)
+
+
+@pytest.mark.parametrize("n_sets,n_parts", [(8, 1), (8, 2), (8, 4),
+                                            (32, 4), (30, 5)])
+def test_shard_roll_plan(n_sets, n_parts):
+    """Every shift in (0, n_sets): the same plan, and the plan moves the
+    rows as the global roll does."""
+    for shift in range(1, n_sets):
+        plan = t_geo.shard_roll_plan(shift, n_sets, n_parts)
+        assert plan == j_geo.shard_roll_plan(shift, n_sets, n_parts)
+        q, r, low, high = plan
+        s_loc = n_sets // n_parts
+        src = np.arange(n_sets).reshape(n_parts, s_loc)
+        new = np.empty_like(src)
+        for j in range(n_parts):
+            new[(j + q) % n_parts, r:] = src[j, :s_loc - r]
+            if r:
+                new[(j + q + 1) % n_parts, :r] = src[j, s_loc - r:]
+        np.testing.assert_array_equal(new.reshape(-1),
+                                      np.roll(np.arange(n_sets), shift))
+        assert (low is None) == (q % n_parts == 0)
+    for bad in (0, n_sets):
+        with pytest.raises(ValueError):
+            t_geo.shard_roll_plan(bad, n_sets, n_parts)
+
+
+@pytest.mark.parametrize("n_q,n_sets,n_parts,block_q", [
+    (0, 8, 2, 16), (3, 8, 2, 4), (130, 8, 4, 16), (300, 32, 4, 64),
+    (64, 8, 1, 16)])
+def test_group_queries_by_set_stacked(n_q, n_sets, n_parts, block_q, rng):
+    sets = rng.integers(0, n_sets, n_q)
+    _eq(t_ops.group_queries_by_set_stacked(sets, n_sets, n_parts, block_q),
+        j_ops.group_queries_by_set_stacked(sets, n_sets, n_parts, block_q))
+
+
 def test_rotary_offsets():
     j, t = j_geo.zero_offsets(), t_geo.zero_offsets("cpu")
     for _ in range(17):

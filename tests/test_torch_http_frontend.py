@@ -613,8 +613,16 @@ def test_httpd_tokens_match_reference():
 
 
 def test_httpd_refuses_shards_and_defaults_to_the_card():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        httpd.build_frontend(_httpd_args("yi-9b", "--n-shards", "2"))
+    """``--n-shards 2`` now builds (its two set shards co-locate on the
+    one device); without ``--device`` the edge still wants the card."""
+    fe, q = httpd.build_frontend(_httpd_args("yi-9b", "--n-shards", "2"))
+    fe.start()
+    try:
+        assert q.index.n_shards == 2 and q.index.n_parts == 1
+        assert q.index.sets_per_shard == 4
+    finally:
+        fe.shutdown()
+        q.close()
     args = httpd.build_parser().parse_args(["--reduced"])
     assert args.device == "cuda"
     if not torch.cuda.is_available():

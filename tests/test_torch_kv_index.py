@@ -184,11 +184,19 @@ def test_admit_queue_parity(background):
 
 
 def test_index_rejects_unported_paths():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_kv.MonarchKVIndex(t_kv.KVIndexConfig(n_sets=8, n_shards=2),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_kv.MonarchKVIndex(dispatch="fanout", device="cpu")
+    """The shard checks of the reference's constructor: a shard count
+    that does not divide ``n_sets`` raises as the reference's does, and
+    fanout storage admits only through fanout (both packages assert)."""
+    for mod in (j_kv, t_kv):
+        kw = {} if mod is j_kv else {"device": "cpu"}
+        with pytest.raises(ValueError, match="divide n_sets"):
+            mod.MonarchKVIndex(mod.KVIndexConfig(n_sets=8, n_shards=3), **kw)
+        with pytest.raises(AssertionError, match="fanout admission"):
+            mod.MonarchKVIndex(mod.KVIndexConfig(n_sets=8, n_shards=2),
+                               dispatch="fanout", admit_dispatch="auto", **kw)
+    idx = t_kv.MonarchKVIndex(t_kv.KVIndexConfig(n_sets=8, n_shards=2),
+                              device="cpu")
+    assert (idx.n_shards, idx.sets_per_shard, idx.n_parts) == (2, 4, 1)
 
 
 def test_index_defaults_to_the_card():

@@ -127,8 +127,13 @@ def test_launcher_main_on_cpu(capsys):
     assert sum(r.resumed_chunks for r in records) > 0
     out = capsys.readouterr().out
     assert "index hit rate" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_serve.main(["--reduced", "--device", "cpu", "--n-shards", "2"])
+    # --n-shards now serves: two set shards co-located on the one device
+    records = t_serve.main(["--reduced", "--device", "cpu", "--n-shards",
+                            "2", "--requests", "6", "--decode-tokens", "2",
+                            "--sync-admit"])
+    assert len(records) == 3 and sum(r.hit_chunks for r in records) > 0
+    out = capsys.readouterr().out
+    assert "sharded over 2 set shards (4 sets each; co-located" in out
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +181,7 @@ for m in mods:
 import chip_smoke
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
 assert {{"repro_torch.serve.http_frontend",
-         "repro_torch.launch.httpd"}} <= set(mods)
+         "repro_torch.launch.httpd", "repro_torch.models.moe"}} <= set(mods)
 print("imported", len(mods))
 """
 
