@@ -62,6 +62,26 @@ code 1) on failure:
    qwen3-moe-30b-a3b at full width and depth (48 layers, 30.53 B bf16
    parameters, 61.06 GB) behind ``launch/httpd.build_frontend`` with
    ``--n-shards 4``, checked and timed as phase 3b's edge.
+3d. The SSM models.  qwen3-moe is freed first and the card's allocated
+   memory must be back to its level before phase 3.  (a) One Mamba-1
+   block at falcon-mamba-7b's width (d_inner 8192, N 16) and one Mamba-2
+   block at zamba2-2.7b's (80 heads of 64, N 64), as a layer group runs
+   them: S = 96 with its final state and conv tail, then 8 decode steps
+   from them, card against CPU, outputs, float32 states and conv taps
+   within rtol 1e-2/atol 5e-2.  (b) falcon-mamba at full width and 4
+   layers and zamba2 at full width and one group (6 layers, one shared
+   attention call): prefill 2 x 96 tokens and 8 greedy decode steps,
+   card against CPU (logits within rtol/atol, tokens under the margin
+   rule); then on the card each decode step after prefill(96) against a
+   fresh prefill over the 96 + t tokens, held to the reference's
+   decode-vs-forward bound (rtol 0.2, atol 0.35, argmax agreeing on at
+   least 70%).  (c) falcon-mamba-7b (64 layers, 7.27 B parameters, 14.56
+   GB), then zamba2-2.7b (54 layers, 2.06 B), at full width and depth
+   behind ``launch/httpd.build_frontend`` on the resume-off path: the
+   edge's index counts hits with ``"block"`` fingerprints and no chunk
+   resumes; checked and timed as phase 3b's edge, decode beside its
+   weight-read bound (every weight but the embedding table, zamba2's
+   shared block once per call).
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -748,8 +768,24 @@ def http_json(method: str, host: str, port: int, path: str, body=None):
     return resp.status, doc
 
 
+def decode_read_bytes(cfg, params) -> int:
+    """Bytes of weights one decode step must read: every leaf but the
+    embedding table (a step gathers its B rows), and a shared block's
+    leaves once per call (zamba2: 9 calls)."""
+    from repro_torch.configs.base import SHARED_ATTN
+    from repro_torch.pytree import tree_leaves
+    size = lambda t: sum(a.numel() * a.element_size() for a in tree_leaves(t))
+    n = size(params)
+    if not cfg.tie_embeddings:
+        n -= size(params["embed"]["embed"])
+    if "shared" in params:
+        n += (cfg.layer_pattern().count(SHARED_ATTN) - 1) * size(
+            params["shared"])
+    return n
+
+
 def edge_phase(np, torch, smi: str, argv: list, dims: dict,
-               check_tree) -> dict:
+               check_tree, resume: bool = True) -> dict:
     """The ``--arch`` of ``argv`` at full width and depth (its fields
     must equal ``dims``; bf16, seeded random weights on the card, their
     tree checked by ``check_tree``) booted behind
@@ -760,7 +796,10 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     same 8 requests are then replayed through ``run_request_loop`` on a
     fresh index of the same shards over the same parameters (greedy
     tokens equal under the margin rule), and the per-stage times are
-    taken on that engine."""
+    taken on that engine.  ``resume=False`` is the path of a recurrent
+    model: the edge must report resume off, the index (``"block"``
+    fingerprints, no slab store) must hit and no chunk may resume; the
+    replay and its times run the plain prefill and decode."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.xam_search import ops
     from repro_torch.launch import httpd
@@ -770,6 +809,7 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     from repro_torch.serve.admit_queue import AdmitQueue
     from repro_torch.serve.kv_index import (KVIndexConfig, KVSlabStore,
                                             MonarchKVIndex)
+    from repro_torch.serve.step import make_decode_step
 
     args = httpd.build_parser().parse_args(argv)
     cfg = get_arch(args.arch)
@@ -786,7 +826,7 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
                        for t in tree_leaves(params))
     check_tree(params)
     log(f"{cfg.name}: {n_params / 1e9:.4f} B params ({weight_bytes / 1e9:.3f}"
-        f" GB bf16) drawn on the card in {init_s:.1f} s")
+        f" GB of weights) drawn on the card in {init_s:.1f} s")
 
     rng = np.random.default_rng(0)
     prefix = rng.integers(1, cfg.vocab_size, 48)
@@ -797,6 +837,10 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     zero_counts()
     frontend, admit_q = httpd.build_frontend(args, params=params)
     idx = admit_q.index
+    if (idx.slab_store is not None) != resume or \
+            idx.cfg.fingerprint != ("prefix" if resume else "block"):
+        raise AssertionError(f"{cfg.name}: the edge's index is not on the "
+                             f"resume={'on' if resume else 'off'} path")
     frontend.start()
     host, port = frontend.address
     answers, latency_ms = [], []
@@ -823,8 +867,12 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     if launches["xam_search_multiset"] != s.searches or s.searches == 0:
         raise AssertionError(f"multi-set launches {launches} != "
                              f"stats.searches {s.searches}")
-    if idx.hit_rate <= 0 or sum(a["resumed_chunks"] for a in answers[1:]) <= 0:
-        raise AssertionError("no index hits or no resumed chunks")
+    resumed = [a["resumed_chunks"] for a in answers]
+    if idx.hit_rate <= 0 or (sum(resumed[1:]) <= 0 if resume
+                             else any(resumed)):
+        raise AssertionError(f"index hit rate {idx.hit_rate}, resumed "
+                             f"chunks {resumed} with resume "
+                             f"{'on' if resume else 'off'}")
     if served.completed != EDGE_REQUESTS or served.errors:
         raise AssertionError(f"router: {served}")
     if s.throttled:
@@ -845,25 +893,31 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     log(f"edge: {EDGE_REQUESTS} requests at {cfg.name} full depth, "
         f"{idx.n_shards} index shards, hit rate "
         f"{idx.hit_rate:.3f}, {s.searches} searches == "
-        f"{launches['xam_search_multiset']} launches, resumed chunks "
-        f"{[a['resumed_chunks'] for a in answers]}, drain {drain_s:.2f} s, "
-        f"/stats hit rate {stats['index']['hit_rate']}")
+        f"{launches['xam_search_multiset']} launches, resume "
+        f"{'on' if resume else 'off'}, resumed chunks {resumed}, drain "
+        f"{drain_s:.2f} s, /stats hit rate {stats['index']['hit_rate']}")
 
     # The same requests through run_request_loop on a fresh index.
     kv_cfg = KVIndexConfig(n_sets=8, m_writes=args.m_writes,
-                           clock=args.wear_clock, fingerprint="prefix",
+                           clock=args.wear_clock,
+                           fingerprint="prefix" if resume else "block",
                            admit_after_reads=0, n_shards=args.n_shards)
-    idx2 = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore(), device="cuda")
+    idx2 = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore() if resume
+                          else None, device="cuda")
     q2 = AdmitQueue(idx2)
     max_seq = args.prompt_len + args.decode_tokens
-    prefill_fn, _, eng = build_model_fns(
+    prefill_fn, plain_decode, eng = build_model_fns(
         params, cfg, max_seq=max_seq, decode_tokens=8, index=idx2,
-        resume=True)
+        resume=resume)
+    step = make_decode_step(cfg)
     gaps = []
 
     def decode_fn(toks, result):
-        st = result.state
-        logits, cache, pos = st["logits"], st["cache"], st["pos"]
+        if resume:
+            st = result.state
+            logits, cache, pos = st["logits"], st["cache"], st["pos"]
+        else:
+            (logits, cache), pos = result, toks.shape[1]
         out, g = [], []
         for t in range(8):
             lg = logits.float().cpu().numpy()
@@ -871,7 +925,7 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
             g.append(top2_gap(np, lg))
             if t < 7:
                 nxt = torch.from_numpy(out[-1][:, None]).cuda()
-                _, logits, cache = eng._decode(params, cache, nxt, pos + t)
+                _, logits, cache = step(params, cache, nxt, pos + t)
         gaps.append(np.stack(g, 1))
         return np.stack(out, 1).astype(np.int32)
 
@@ -887,38 +941,48 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
                            for tk, r in zip(edge_tokens, recs)]))
 
     # Per-stage times on the replay's engine (host clock, each ending in
-    # a synchronisation).
+    # a synchronisation); a decode time covers 8 emitted tokens from one
+    # prefill's state, whose cache it updates in place.
     toks = batches[-1]
     hits = idx2.lookup(toks)
-    full = eng.prefill(toks, None)
-    resumed_timed = eng.prefill(toks, hits).resumed_chunks
     fresh = np.random.default_rng(5).integers(1, 2 ** 32, (16, 12),
                                               dtype=np.uint32)
     it = iter(fresh)
-    times = {
-        "lookup_ms": host_ms(torch, lambda: idx2.lookup(toks), 10),
-        "prefill_resumed_ms": host_ms(torch, lambda: eng.prefill(toks, hits),
-                                      3),
-        "prefill_full_ms": host_ms(torch, lambda: eng.prefill(toks, None), 3),
-        "decode_ms_per_token": host_ms(
-            torch, lambda: eng.decode(full, 8), 3) / 8,
+    read_bytes = decode_read_bytes(cfg, params)
+    times = {"lookup_ms": host_ms(torch, lambda: idx2.lookup(toks), 10)}
+    if resume:
+        full = eng.prefill(toks, None)
+        times["resumed_chunks_timed"] = eng.prefill(toks, hits).resumed_chunks
+        times["prefill_resumed_ms"] = host_ms(
+            torch, lambda: eng.prefill(toks, hits), 3)
+        times["prefill_full_ms"] = host_ms(
+            torch, lambda: eng.prefill(toks, None), 3)
+        times["decode_ms_per_token"] = host_ms(
+            torch, lambda: eng.decode(full, 8), 3) / 8
+    else:
+        full = prefill_fn(toks, hits)
+        times["prefill_full_ms"] = host_ms(
+            torch, lambda: prefill_fn(toks, hits), 3)
+        times["decode_ms_per_token"] = host_ms(
+            torch, lambda: plain_decode(toks, full), 3) / 8
+    times.update({
         "admit_ms": host_ms(torch, lambda: idx2.admit_fps(next(it)), 10),
         "edge_latency_ms": latency_ms,
         "edge_latency_ms_median": statistics.median(latency_ms),
         "edge_server_ms": [a["server_ms"] for a in answers],
-        "resumed_chunks_timed": resumed_timed,
         "init_s": init_s, "drain_s": drain_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
-    }
+        "decode_read_gb": read_bytes / 1e9,
+        "decode_read_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3,
+    })
     q2.close()
     log("edge stage times (" + smi + "): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float)))
-    return {"arch": cfg.name, "n_shards": idx.n_shards,
+    return {"arch": cfg.name, "n_shards": idx.n_shards, "resume": resume,
             "launches": launches["xam_search_multiset"],
             "searches": s.searches, "requests": EDGE_REQUESTS,
-            "hit_rate": idx.hit_rate,
-            "resumed_chunks": [a["resumed_chunks"] for a in answers],
+            "hit_rate": idx.hit_rate, "resumed_chunks": resumed,
             "params_b": n_params / 1e9, "weight_gb": weight_bytes / 1e9,
             "decoded_agree": agree, "times": times, "card": smi}
 
@@ -1276,6 +1340,222 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
     return {"shards": shards, "moe": layer, "edge": edge,
             "allocated_after_phase3b_bytes": left}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: Mamba-1 and Mamba-2 blocks; falcon-mamba-7b and zamba2-2.7b
+# behind the edge on the resume-off path.
+# ---------------------------------------------------------------------------
+
+SSM_PREFILL = 96                   # Mamba-1: chunks of 64 and 32 (padded)
+SSM_DECODE = 8
+FALCON_DIMS = {"n_layers": 64, "d_model": 4096, "ssm_state": 16,
+               "ssm_expand": 2, "ssm_conv": 4, "vocab_size": 65024}
+ZAMBA_DIMS = {"n_layers": 54, "d_model": 2560, "n_heads": 32,
+              "n_kv_heads": 32, "d_head": 80, "d_ff": 10240,
+              "ssm_state": 64, "ssm_head_dim": 64, "shared_attn_every": 6,
+              "vocab_size": 32000}
+#: layers of the card-vs-CPU stacks: falcon-mamba 4, zamba2 one group
+SSM_FEW_LAYERS = {"falcon-mamba-7b": 4, "zamba2-2.7b": 6}
+#: the reference's own decode-vs-forward bound for the recurrent archs
+#: (tests/test_models.py::test_decode_matches_forward)
+HANDOFF_RTOL, HANDOFF_ATOL, HANDOFF_AGREE = 0.2, 0.35, 0.7
+
+
+def edge_argv(arch: str) -> list:
+    return [arch if a == "gemma3-27b" else a for a in EDGE_ARGV]
+
+
+def falcon_tree(params) -> None:
+    b0 = params["groups"]["b0"]
+    if sorted(params["groups"]) != ["b0"] or sorted(b0) != ["ln1", "ssm"] \
+            or tuple(b0["ssm"]["a_log"].shape) != (64, 8192, 16) or \
+            b0["ssm"]["a_log"].dtype.itemsize != 4:
+        raise AssertionError("falcon-mamba-7b's tree is not 64 x b0 of "
+                             "Mamba-1 with float32 a_log")
+
+
+def zamba_tree(params) -> None:
+    if sorted(params["groups"]) != [f"b{i}" for i in range(5)] or \
+            "shared" not in params or "rem0" in params or \
+            tuple(params["groups"]["b0"]["ssm"]["wz"].shape) != (9, 2560,
+                                                                 5120):
+        raise AssertionError("zamba2-2.7b's tree is not 9 x b0..b4 of "
+                             "Mamba-2 and one shared block")
+
+
+def diff_stats(np, got, want) -> tuple[float, float]:
+    """(max |diff|, share outside RTOL/ATOL) of a card tensor against
+    the CPU's."""
+    a, b = got.float().cpu().numpy(), want.float().numpy()
+    if not np.isfinite(a).all():
+        raise AssertionError("non-finite values on the card")
+    d = np.abs(a - b)
+    return float(d.max()), float((d > ATOL + RTOL * np.abs(b)).mean())
+
+
+def ssm_block_check(np, torch) -> list:
+    """(a) One Mamba-1 block at falcon-mamba's width (d_inner 8192, N 16)
+    and one Mamba-2 block at zamba2's (80 heads of 64, N 64), seeded
+    weights drawn on the card, run as a layer group runs them
+    (``fused``): S = 96 with ``return_state``, then 8 decode steps from
+    that state, card against CPU; outputs, float32 states and conv taps
+    held to RTOL/ATOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+    from repro_torch.pytree import tree_map
+
+    rows = []
+    for kind, arch, dims in (("mamba1", "falcon-mamba-7b", FALCON_DIMS),
+                             ("mamba2", "zamba2-2.7b", ZAMBA_DIMS)):
+        cfg = get_arch(arch)
+        if {k: getattr(cfg, k) for k in dims} != dims:
+            raise AssertionError(f"not {arch} at full width")
+        init, blk, dec = {"mamba1": (ssm.init_mamba1, ssm.mamba1_block,
+                                     ssm.mamba1_decode),
+                          "mamba2": (ssm.init_mamba2, ssm.mamba2_block,
+                                     ssm.mamba2_decode)}[kind]
+        p = init(torch.Generator(device="cuda").manual_seed(5), cfg)
+        p_cpu = tree_map(lambda a: a.cpu(), p)
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.standard_normal(
+            (2, SSM_PREFILL, cfg.d_model)).astype(np.float32)).to(
+            torch.bfloat16)
+        o, h, c = blk(p, x.cuda(), cfg, return_state=True, fused=True)
+        oc, hc, cc = blk(p_cpu, x, cfg, return_state=True, fused=True)
+        stats = {"out": [diff_stats(np, o, oc)], "h": [diff_stats(np, h, hc)],
+                 "conv": [diff_stats(np, c, cc)]}
+        xs = [torch.from_numpy(rng.standard_normal(
+            (2, 1, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(SSM_DECODE)]
+        for xt in xs:
+            o = dec(p, xt.cuda(), cfg, h, c, fused=True)[0]
+            oc = dec(p_cpu, xt, cfg, hc, cc, fused=True)[0]
+            for k, (a, b) in (("out", (o, oc)), ("h", (h, hc)),
+                              ("conv", (c, cc))):
+                stats[k].append(diff_stats(np, a, b))
+        worst = {k: (max(m for m, _ in v), max(f for _, f in v))
+                 for k, v in stats.items()}
+        xc = x.cuda()
+        block_ms = host_ms(torch, lambda: blk(p, xc, cfg, return_state=True,
+                                             fused=True), 3)
+        xt = xs[0].cuda()
+        step_ms = host_ms(torch, lambda: dec(p, xt, cfg, h, c, fused=True), 10)
+        log(f"{kind} block at {arch} width, S={SSM_PREFILL} + "
+            f"{SSM_DECODE} decode steps, card vs CPU: " + ", ".join(
+                f"{k} max |diff| {m:.6f} ({f:.6f} outside)"
+                for k, (m, f) in worst.items())
+            + f"; block {block_ms:.3f} ms, decode step {step_ms:.3f} ms")
+        if any(f > 0 for _, f in worst.values()):
+            raise AssertionError(f"{kind} block card vs CPU exceeds rtol "
+                                 f"{RTOL}/atol {ATOL}: {worst}")
+        rows.append({"kind": kind, "arch": arch,
+                     **{f"{k}_max_abs_diff": m for k, (m, _) in worst.items()},
+                     "block_ms": block_ms, "decode_step_ms": step_ms})
+        del p, p_cpu, h, c
+    return rows
+
+
+def ssm_layers_check(np, torch, arch: str) -> dict:
+    """(b) ``arch`` at full width and ``SSM_FEW_LAYERS`` layers (seeded
+    weights drawn on the card, copied to the CPU): prefill 2 x 96 tokens
+    and 8 greedy decode steps (the CPU's token fed to both), card against
+    CPU, logits within RTOL/ATOL and greedy tokens under the margin rule.
+    Then the state handoff on the card: after prefill(96), each decode
+    step's logits against a fresh prefill over the 96 + t tokens, held to
+    the reference's decode-vs-forward bound (rtol 0.2, atol 0.35, argmax
+    agreeing on at least 70%): the chunked and the stepwise scans round
+    differently."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.pytree import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=SSM_FEW_LAYERS[arch])
+    params = transformer.init_params(cfg, seed=7, device="cuda")
+    params_cpu = tree_map(lambda a: a.cpu(), params)
+    toks = np.random.default_rng(8).integers(1, cfg.vocab_size,
+                                             (2, SSM_PREFILL))
+    max_seq = SSM_PREFILL + SSM_DECODE
+    lg, cache = transformer.prefill(params, cfg, {"tokens": toks}, max_seq)
+    lc, cache_c = transformer.prefill(params_cpu, cfg, {"tokens": toks},
+                                      max_seq)
+    d_max, out_max, got, want, gaps = 0.0, 0.0, [], [], []
+    for t in range(SSM_DECODE):
+        m, f = diff_stats(np, lg, lc)
+        d_max, out_max = max(d_max, m), max(out_max, f)
+        b = lc.numpy()
+        got.append(lg.float().cpu().numpy().argmax(-1))
+        want.append(b.argmax(-1))
+        gaps.append(top2_gap(np, b))
+        nxt = want[-1][:, None]
+        lg, cache = transformer.decode_step(params, cfg, nxt, cache,
+                                            SSM_PREFILL + t)
+        lc, cache_c = transformer.decode_step(params_cpu, cfg, nxt, cache_c,
+                                              SSM_PREFILL + t)
+    if out_max > 0 or not greedy_margin_agree(
+            np.stack(got, 1), np.stack(want, 1), np.stack(gaps, 1)):
+        raise AssertionError(f"{arch} at {cfg.n_layers} layers, card vs CPU: "
+                             f"logits max |diff| {d_max}, {out_max} outside "
+                             f"rtol {RTOL}/atol {ATOL}, or greedy tokens "
+                             "differ past the margin")
+    agree = float((np.stack(got) == np.stack(want)).mean())
+
+    # the handoff: decode from prefill(96) against fresh prefills
+    seq = toks.copy()
+    lg, cache = transformer.prefill(params, cfg, {"tokens": seq}, max_seq)
+    h_max, h_agree = 0.0, []
+    for t in range(SSM_DECODE):
+        nxt = lg.argmax(-1).cpu().numpy()[:, None]
+        seq = np.concatenate([seq, nxt], axis=1)
+        lg, cache = transformer.decode_step(params, cfg, nxt, cache,
+                                            SSM_PREFILL + t)
+        fresh, _ = transformer.prefill(params, cfg, {"tokens": seq}, max_seq)
+        a, b = lg.float().cpu().numpy(), fresh.float().cpu().numpy()
+        d = np.abs(a - b)
+        h_max = max(h_max, float(d.max()))
+        if (d > HANDOFF_ATOL + HANDOFF_RTOL * np.abs(b)).any():
+            raise AssertionError(f"{arch}: decode after prefill vs a fresh "
+                                 f"prefill at step {t}: max |diff| {d.max()}")
+        h_agree.extend(a.argmax(-1) == b.argmax(-1))
+    if float(np.mean(h_agree)) < HANDOFF_AGREE:
+        raise AssertionError(f"{arch}: the handoff's argmax agrees on "
+                             f"{np.mean(h_agree)} of steps")
+    log(f"{arch} at full width, {cfg.n_layers} layers, prefill "
+        f"{SSM_PREFILL} + {SSM_DECODE} decode steps, card vs CPU: logits "
+        f"max |diff| {d_max:.6f}, greedy tokens agree {agree:.3f}; handoff "
+        f"(decode vs fresh prefill, card): max |diff| {h_max:.6f}, argmax "
+        f"agrees {float(np.mean(h_agree)):.3f}")
+    del params, params_cpu, cache, cache_c
+    return {"arch": arch, "layers": cfg.n_layers, "logits_max_abs_diff": d_max,
+            "greedy_agree": agree, "handoff_max_abs_diff": h_max,
+            "handoff_argmax_agree": float(np.mean(h_agree))}
+
+
+def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
+    """Phase 3d: free the card of qwen3-moe, then (a) the two blocks at
+    full width, (b) the few-layer stacks, and (c) falcon-mamba-7b, then
+    zamba2-2.7b, at full width and depth behind the edge, resume off."""
+    left = free_card(torch)
+    log(f"phase 3d: {left / 1e9:.4f} GB allocated after phase 3c "
+        f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3c left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    blocks = ssm_block_check(np, torch)
+    free_card(torch)
+    stacks = [ssm_layers_check(np, torch, arch) for arch in SSM_FEW_LAYERS]
+    free_card(torch)
+    edges = []
+    for arch, dims, tree in (("falcon-mamba-7b", FALCON_DIMS, falcon_tree),
+                             ("zamba2-2.7b", ZAMBA_DIMS, zamba_tree)):
+        edges.append(edge_phase(np, torch, smi, edge_argv(arch), dims, tree,
+                                resume=False))
+        free_card(torch)
+    wall = time.perf_counter() - t0
+    log(f"phase 3d: {wall:.1f} s")
+    return {"blocks": blocks, "stacks": stacks, "edges": edges,
+            "wall_s": wall, "allocated_after_phase3c_bytes": left}
 
 
 # ---------------------------------------------------------------------------
@@ -2365,6 +2645,7 @@ def main() -> int:
     serve_counts = read_counts()
     gemma = gemma_phase(np, torch, smi, base_bytes)
     moe = moe_phase(np, torch, smi, base_bytes)
+    ssm = ssm_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -2386,7 +2667,8 @@ def main() -> int:
         "xam_search_multiset": (serve_counts["xam_search_multiset"]
                                 + gemma["edge"]["launches"]
                                 + moe["shards"]["launches"]
-                                + moe["edge"]["launches"]),
+                                + moe["edge"]["launches"]
+                                + sum(e["launches"] for e in ssm["edges"])),
         "hopscotch_lookup": table["point"]["launches"]["hopscotch_lookup"],
         "string_match": strings["launches"]["string_match"],
         "xam_search": api["launches"]["xam_search"],
@@ -2406,6 +2688,8 @@ def main() -> int:
         "launches_edge": gemma["edge"]["launches"],
         "launches_shards": moe["shards"]["launches"],
         "launches_moe_edge": moe["edge"]["launches"],
+        "launches_ssm_edges": {e["arch"]: e["launches"]
+                               for e in ssm["edges"]},
         "launches_per_request_batch": served["launches"] / served["batches"],
         "max_abs_err": max_err,
         "ms": main_row["ms"],
@@ -2443,7 +2727,7 @@ def main() -> int:
                       "serve": served["times"],
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
-                      "gemma3": gemma, "qwen3_moe": moe,
+                      "gemma3": gemma, "qwen3_moe": moe, "ssm": ssm,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "card": smi}), flush=True)

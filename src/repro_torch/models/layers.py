@@ -1,7 +1,7 @@
-"""Transformer layers for the serving path — port of the attention parts
-of ``repro/models/layers.py`` (global and sliding-window local attention,
-the ring-buffer decode).  Plain functions over parameter dicts of
-tensors.
+"""Transformer layers — port of ``repro/models/layers.py`` (global and
+sliding-window local attention, the ring-buffer decode, the MLPs, the
+embeddings and the chunked cross-entropy loss).  Plain functions over
+parameter dicts of tensors.
 
 Numerics follow the reference: activations and weights bf16, plain
 ``x @ W`` projections in bf16, and the attention and unembedding
@@ -291,3 +291,23 @@ def unembed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     for lo in range(0, v, VOCAB_CHUNK):
         out[..., lo:lo + VOCAB_CHUNK] = xf @ w[:, lo:lo + VOCAB_CHUNK].float()
     return out
+
+
+def chunked_ce_loss(params: dict, x: torch.Tensor, labels: torch.Tensor, *,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the vocabulary of the labels >= 0 (-1 =
+    masked), over ``chunk`` positions at a time so the (B, S, V) float32
+    logits are never resident whole.  x: (B, S, D) bf16; labels (B, S)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, s, chunk):
+        lc = labels[:, lo:lo + chunk]
+        logits = unembed_logits(params, x[:, lo:lo + chunk])  # (B, C, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        valid = lc >= 0
+        total = total + torch.where(valid, logz - gold, 0.0).sum()
+        count = count + valid.sum()
+    return total / count.clamp_min(1).float()

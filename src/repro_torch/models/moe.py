@@ -1,7 +1,6 @@
-"""Mixture-of-Experts block — port of ``repro/models/moe.py`` (the
-serving half: ``init_moe``, ``capacity``, ``moe_block`` and its two
-dispatch paths; the training loss ``aux_load_balance_loss`` is not
-ported yet).
+"""Mixture-of-Experts block — port of ``repro/models/moe.py`` (``init_moe``,
+``capacity``, ``moe_block`` and its two dispatch paths, and the
+training loss ``aux_load_balance_loss``).
 
 Tokens are dispatched within their group (one sequence), GShard style:
 
@@ -186,3 +185,14 @@ def _moe_block_einsum(params: dict, x: torch.Tensor, cfg: ArchConfig):
     out = _experts(params, xe)
     y = torch.einsum("gecd,gnec->gnd", out, combine.to(out.dtype))
     return y.to(x.dtype), expert_ix, probs
+
+
+def aux_load_balance_loss(params: dict, x: torch.Tensor,
+                          cfg: ArchConfig) -> torch.Tensor:
+    """Switch-style load-balance auxiliary: ``E * sum(fraction of tokens
+    whose top-1 expert is e * mean router probability of e)``, float32."""
+    probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.nn.functional.one_hot(top1, cfg.n_experts).float().mean(
+        dim=(0, 1))
+    return cfg.n_experts * (frac * probs.mean(dim=(0, 1))).sum()

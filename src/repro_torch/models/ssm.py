@@ -1,0 +1,367 @@
+"""State-space blocks: Mamba-1 (selective scan) and Mamba-2 (SSD, chunked)
+— port of ``repro/models/ssm.py``.  Plain functions over parameter dicts
+of tensors, in the style of ``models/moe.py``.
+
+Both blocks run chunk by chunk over the sequence, so the discretized
+(B, L, d_inner, N) tensors exist one chunk at a time.  The reference's
+``lax.scan`` over chunks is a Python loop, and so is Mamba-1's scan over
+the steps inside a chunk: one ``addcmul`` launch a step, ``h = h * dA +
+dBx`` written into the chunk's ``dBx`` buffer, whose rows are then the
+chunk's states for the output contraction.  Mamba-1 skips the padded
+steps of a last partial chunk: they have ``dt = 0``, so ``dA = 1`` and
+``dBx = 0`` and they would leave the state exactly as it is.  Mamba-2
+pads as the reference does (its chunk is one set of contractions).
+
+Numerics follow the reference's rounding points: the recurrent state is
+float32, the conv tail bf16; the block's conv output is rounded to bf16
+before its ``silu`` (rounded per op as ``jax.nn.silu`` is on bf16), the
+decode step's is not (float32 ``silu``, rounded after).  Inside a layer
+group the reference runs the block in a compiled scan body, where XLA
+keeps some values at float32 that op by op are bf16: Mamba-2's gated norm
+reads the unrounded product ``y_bf16 * silu(z)_bf16`` (block and decode
+step), and Mamba-1's skip term the unrounded ``silu`` product when no
+padding slices it.  ``fused=True`` follows that body (the stack passes it
+for its grouped blocks); the default follows the op-by-op reference, as
+its remainder blocks and direct calls run.
+Decode updates the state and the conv buffer IN PLACE (the reference
+returned updated copies), as ``layers.decode_attention`` does its cache.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers
+
+DTYPE = layers.DTYPE
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Shapes and init.
+# ---------------------------------------------------------------------------
+
+def dt_rank(cfg: ArchConfig) -> int:
+    return max(cfg.d_model // 16, 1)
+
+
+def d_inner(cfg: ArchConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def m2_heads(cfg: ArchConfig) -> int:
+    return d_inner(cfg) // cfg.ssm_head_dim
+
+
+def mamba1_shapes(cfg: ArchConfig, lead: tuple = ()) -> dict:
+    """``(shape, dtype)`` of each leaf of a Mamba-1 block's ``ssm``
+    subtree (``lead`` prefixes every shape: a stacked block's group
+    axis)."""
+    di, n, r = d_inner(cfg), cfg.ssm_state, dt_rank(cfg)
+    d, k = cfg.d_model, cfg.ssm_conv
+    return {"wx": (lead + (d, di), DTYPE), "wz": (lead + (d, di), DTYPE),
+            "conv_w": (lead + (k, di), DTYPE), "conv_b": (lead + (di,), DTYPE),
+            "x_proj": (lead + (di, r + 2 * n), DTYPE),
+            "dt_w": (lead + (r, di), DTYPE), "dt_b": (lead + (di,), DTYPE),
+            "a_log": (lead + (di, n), F32), "d_skip": (lead + (di,), F32),
+            "out_proj": (lead + (di, d), DTYPE)}
+
+
+def mamba2_shapes(cfg: ArchConfig, lead: tuple = ()) -> dict:
+    """``(shape, dtype)`` of each leaf of a Mamba-2 block's ``ssm``
+    subtree."""
+    di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
+    d, k = cfg.d_model, cfg.ssm_conv
+    return {"wz": (lead + (d, di), DTYPE),
+            "wxbc": (lead + (d, di + 2 * n), DTYPE),
+            "wdt": (lead + (d, h), DTYPE),
+            "conv_w": (lead + (k, di + 2 * n), DTYPE),
+            "conv_b": (lead + (di + 2 * n,), DTYPE),
+            "a_log": (lead + (h,), F32), "dt_b": (lead + (h,), F32),
+            "d_skip": (lead + (h,), F32), "norm_w": (lead + (di,), DTYPE),
+            "out_proj": (lead + (di, d), DTYPE)}
+
+
+#: Random leaves drawn at a fixed scale instead of ``fan_in ** -0.5``.
+_SCALES = {"conv_w": 0.5, "wdt": 0.02}
+
+
+def init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
+              device=None) -> torch.Tensor:
+    """One layer's leaf ``name`` of an ``ssm`` subtree, as the reference
+    makes it: the deterministic leaves (``a_log`` S4D-real for Mamba-1,
+    ``log(linspace(1, 16, H))`` for Mamba-2; ``dt_b = log(expm1(0.01))``;
+    ``d_skip = 1``; ``conv_b`` and ``norm_w`` zero), and the others drawn
+    from ``gen`` by ``layers.dense_init``.  ``a_log`` is rounded to
+    float32 from float64 on the host, so it is the same on every device
+    (XLA's float32 ``log`` on the CPU is an ulp off at some points)."""
+    device = device or gen.device
+    if name == "a_log":
+        if len(shape) == 2:                  # Mamba-1: (d_inner, N)
+            a = np.tile(np.arange(1, shape[1] + 1, dtype=np.float64),
+                        (shape[0], 1))
+        else:                                # Mamba-2: (H,)
+            a = np.linspace(1.0, 16.0, shape[0])
+        return torch.from_numpy(np.log(a).astype(np.float32)).to(device)
+    if name == "dt_b":
+        v = torch.log(torch.expm1(torch.full(shape, 0.01, dtype=F32)))
+        return v.to(device=device, dtype=dtype)
+    if name == "d_skip":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name in ("conv_b", "norm_w"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return layers.dense_init(gen, shape, scale=_SCALES.get(name),
+                             dtype=dtype, device=device)
+
+
+def init_mamba1(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    return {k: init_leaf(gen, k, *v) for k, v in mamba1_shapes(cfg).items()}
+
+
+def init_mamba2(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    return {k: init_leaf(gen, k, *v) for k, v in mamba2_shapes(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces.
+# ---------------------------------------------------------------------------
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C) — causal per-channel conv, the taps added
+    in order in float32, rounded to ``x``'s dtype once."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    wf = w.float()
+    acc = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for i in range(k):
+        acc = acc + xp[:, i:i + s].float() * wf[i]
+    return (acc + b.float()).to(x.dtype)
+
+
+def _conv_tail(x_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """The last K-1 raw conv inputs (zeros before the sequence), bf16:
+    the decode step's conv buffer after a prefill of ``x_raw``."""
+    s = x_raw.shape[1]
+    return F.pad(x_raw, (0, 0, k - 1, 0))[:, s:s + k - 1].to(DTYPE)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of bf16 (B, K) and (K, N) with the float32 result left
+    unrounded, as XLA's CPU dot of a decode step's 2-D operands leaves it
+    where the reference casts the product to float32.  On the card
+    cuBLAS writes the float32 product directly; the CPU has no such GEMM,
+    so there the operands are widened first (the same products)."""
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=F32)
+    return x.float() @ w.float()
+
+
+def _conv_step(x_t: torch.Tensor, conv_buf: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """One causal conv step over the (B, K-1, C) tap buffer, which is
+    shifted by one IN PLACE; returns the float32 conv output (B, C)."""
+    ext = torch.cat([conv_buf, x_t[:, None, :].to(conv_buf.dtype)], dim=1)
+    out = torch.einsum("bkc,kc->bc", ext.float(), w.float()) + b.float()
+    conv_buf.copy_(ext[:, 1:])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (falcon-mamba-7b: d_state 16, expand 2, conv 4, dt_rank D/16).
+# ---------------------------------------------------------------------------
+
+def _selective_scan(dt, xh, b_in, c_in, a, chunk: int):
+    """``h_t = h_{t-1} * exp(dt_t a) + dt_t x_t b_t``, ``y_t = h_t c_t``
+    over S steps from ``h_0 = 0``, chunk by chunk.  dt: (B, S, di)
+    float32; xh, b_in, c_in: (B, S, di | N) bf16; a: (di, N).  Returns
+    (y (B, S, di) float32, h_final (B, di, N) float32)."""
+    b, s, di = dt.shape
+    n = a.shape[1]
+    h = torch.zeros((b, di, n), dtype=F32, device=dt.device)
+    y = torch.empty((b, s, di), dtype=F32, device=dt.device)
+    for lo in range(0, s, chunk):
+        hi = min(lo + chunk, s)
+        dtc = dt[:, lo:hi].transpose(0, 1)                  # (L, B, di)
+        da = torch.exp(dtc[..., None] * a)                  # (L, B, di, N)
+        xc = xh[:, lo:hi].transpose(0, 1).float()
+        bc = b_in[:, lo:hi].transpose(0, 1).float()
+        hs = (dtc * xc)[..., None] * bc[:, :, None, :]      # dBx, then h_t
+        for t in range(hi - lo):
+            hs[t].addcmul_(h, da[t])
+            h = hs[t]
+        cc = c_in[:, lo:hi].transpose(0, 1).float()
+        y[:, lo:hi] = torch.einsum("lbdn,lbn->bld", hs, cc)
+    return y, h.clone()
+
+
+def mamba1_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                 chunk: int = 64, return_state: bool = False,
+                 fused: bool = False):
+    """x: (B, S, D) bf16 -> (B, S, D) via the chunked selective scan.
+    With ``return_state``: also returns (h_final (B, di, N) float32, conv
+    tail (B, K-1, di) bf16) to seed decode.  ``fused`` rounds as the
+    reference's compiled layer-group body does (module docstring)."""
+    r, n = dt_rank(cfg), cfg.ssm_state
+    chunk = min(chunk, x.shape[1])
+    xh_raw = x @ params["wx"]
+    z = x @ params["wz"]
+    conv = _causal_depthwise_conv(xh_raw, params["conv_w"], params["conv_b"])
+    xh32 = conv.float() * (1 / (1 + torch.exp(-conv))).float()
+    xh = xh32.to(DTYPE)                  # == layers.silu(conv)
+    dbc = xh @ params["x_proj"]
+    dt_in, b_in, c_in = torch.split(dbc, [r, n, n], dim=-1)
+    dt = softplus((dt_in @ params["dt_w"]).float() + params["dt_b"].float())
+    a = -torch.exp(params["a_log"])
+    y, h_final = _selective_scan(dt, xh, b_in, c_in, a, chunk)
+    # compiled, XLA reads the unrounded silu product here unless padding
+    # sliced it; op by op it reads the bf16 xh
+    unrounded = fused and x.shape[1] % chunk == 0
+    y = y + (xh32 if unrounded else xh.float()) * params["d_skip"]
+    y = (y * layers.silu(z.float())).to(x.dtype)
+    out = y @ params["out_proj"]
+    if return_state:
+        return out, h_final, _conv_tail(xh_raw, cfg.ssm_conv)
+    return out
+
+
+def mamba1_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                  h: torch.Tensor, conv_buf: torch.Tensor, *,
+                  fused: bool = False):
+    """One token.  x: (B, 1, D); h: (B, di, N) float32; conv_buf: (B, K-1,
+    di) bf16 — both updated IN PLACE.  Returns (out (B, 1, D), h,
+    conv_buf); ``fused`` as for :func:`mamba1_block`."""
+    r, n = dt_rank(cfg), cfg.ssm_state
+    mm = _mm_f32 if fused else torch.mm
+    xh = x[:, 0] @ params["wx"]
+    z = mm(x[:, 0], params["wz"])
+    xh_c = _conv_step(xh, conv_buf, params["conv_w"], params["conv_b"])
+    xh = layers.silu(xh_c).to(x.dtype)
+    dbc = xh @ params["x_proj"]
+    dt_in, b_in, c_in = torch.split(dbc, [r, n, n], dim=-1)
+    dt = softplus(mm(dt_in, params["dt_w"]).float() + params["dt_b"].float())
+    a = -torch.exp(params["a_log"])
+    da = torch.exp(dt[..., None] * a)                        # (B, di, N)
+    dbx = (dt * xh.float())[..., None] * b_in.float()[:, None, :]
+    torch.addcmul(dbx, h, da, out=h)
+    y = torch.einsum("bdn,bn->bd", h, c_in.float())
+    y = y + xh.float() * params["d_skip"]
+    y = (y * layers.silu(z.float())).to(x.dtype)
+    return (y @ params["out_proj"])[:, None, :], h, conv_buf
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2: d_state 64, head_dim 64, scalar A per head).
+# ---------------------------------------------------------------------------
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, norm_w: torch.Tensor,
+                fused: bool) -> torch.Tensor:
+    """``rms_norm(y_bf16 * silu(z_f32)_bf16)`` (B, S, di) bf16.  The
+    product is rounded to bf16 op by op; ``fused``, the norm reads it
+    unrounded, as XLA computes it inside a compiled body."""
+    g = y.to(DTYPE).float() * layers.silu(z.float()).to(DTYPE).float()
+    if not fused:
+        g = g.to(DTYPE)
+    return layers.rms_norm(g, norm_w).to(DTYPE)
+
+
+def mamba2_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                 chunk: int = 256, return_state: bool = False,
+                 fused: bool = False):
+    """SSD forward, chunked (Mamba-2 minimal algorithm).  x: (B, S, D).
+    With ``return_state``: also returns (h_final (B, H, P, N) float32,
+    conv tail (B, K-1, di + 2N) bf16).  ``fused`` as for
+    :func:`mamba1_block`."""
+    bsz, s, _ = x.shape
+    di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
+    p = cfg.ssm_head_dim
+    z = x @ params["wz"]
+    xbc_raw = x @ params["wxbc"]
+    dt_in = x @ params["wdt"]
+    xbc = layers.silu(_causal_depthwise_conv(xbc_raw, params["conv_w"],
+                                             params["conv_b"]))
+    xh, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    dt = softplus(dt_in.float() + params["dt_b"])                # (B, S, H)
+    a = -torch.exp(params["a_log"])                              # (H,)
+    log_a = dt * a                                               # <= 0
+
+    chunk = min(chunk, s)
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:                     # padded steps: dt = 0, x = 0 (no effect)
+        xh, dt, log_a, b_in, c_in = (F.pad(t, (0, 0, 0, pad)) for t in
+                                     (xh, dt, log_a, b_in, c_in))
+    xhh = xh.reshape(bsz, n_chunks, chunk, h, p)
+    dtc = dt.reshape(bsz, n_chunks, chunk, h)
+    la = log_a.reshape(bsz, n_chunks, chunk, h)
+    bb = b_in.reshape(bsz, n_chunks, chunk, n).float()
+    cc = c_in.reshape(bsz, n_chunks, chunk, n).float()
+    iota = torch.arange(chunk, device=x.device)
+    causal = (iota[:, None] >= iota[None, :])[None, :, :, None]
+    d_skip = params["d_skip"][None, None, :, None]
+
+    hstate = torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
+    ys = torch.empty((bsz, n_chunks, chunk, h, p), dtype=F32,
+                     device=x.device)
+    for ci in range(n_chunks):
+        xc = xhh[:, ci].float()                                  # (B,L,H,P)
+        d, bc, ccc = dtc[:, ci], bb[:, ci], cc[:, ci]
+        cs = torch.cumsum(la[:, ci], dim=1)                      # (B,L,H)
+        # intra-chunk term; exp(cs_i - cs_j) overflows above the
+        # diagonal, so it is masked by where (never by multiplying 0)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]              # (B,L,L,H)
+        decay = torch.where(causal, torch.exp(seg), 0.0)
+        cb = torch.einsum("bin,bjn->bij", ccc, bc)
+        w = cb[..., None] * decay
+        y_diag = torch.einsum("bijh,bjhp->bihp", w, xc * d[..., None])
+        # inter-chunk term: the carried state, decayed
+        y_off = torch.einsum("bln,bhpn,blh->blhp", ccc, hstate,
+                             torch.exp(cs))
+        ys[:, ci] = y_diag + y_off + xc * d_skip
+        tail = torch.exp(cs[:, -1:, :] - cs)                     # to the end
+        new_state = hstate * torch.exp(cs[:, -1])[..., None, None]
+        hstate = new_state + torch.einsum("blh,bln,blhp->bhpn", tail * d,
+                                          bc, xc)
+    y = ys.reshape(bsz, n_chunks * chunk, di)[:, :s]
+    out = _gated_norm(y, z, params["norm_w"], fused) @ params["out_proj"]
+    if return_state:
+        return out, hstate, _conv_tail(xbc_raw, cfg.ssm_conv)
+    return out
+
+
+def mamba2_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                  hstate: torch.Tensor, conv_buf: torch.Tensor, *,
+                  fused: bool = False):
+    """One SSD token.  x: (B, 1, D); hstate: (B, H, P, N) float32;
+    conv_buf: (B, K-1, di + 2N) bf16 — both updated IN PLACE.  Returns
+    (out (B, 1, D), hstate, conv_buf); ``fused`` as for
+    :func:`mamba1_block`."""
+    bsz = x.shape[0]
+    di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
+    p = cfg.ssm_head_dim
+    mm = _mm_f32 if fused else torch.mm
+    z = mm(x[:, 0], params["wz"])
+    xbc = x[:, 0] @ params["wxbc"]
+    dt_in = mm(x[:, 0], params["wdt"])
+    xbc_c = _conv_step(xbc, conv_buf, params["conv_w"], params["conv_b"])
+    xbc = layers.silu(xbc_c).to(x.dtype)
+    xh, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    dt = softplus(dt_in.float() + params["dt_b"])                # (B, H)
+    a = -torch.exp(params["a_log"])
+    da = torch.exp(dt * a)
+    xhp = xh.reshape(bsz, h, p).float()
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt, xhp, b_in.float())
+    torch.addcmul(upd, hstate, da[:, :, None, None], out=hstate)
+    y = torch.einsum("bhpn,bn->bhp", hstate, c_in.float())
+    y = (y + xhp * params["d_skip"][None, :, None]).reshape(bsz, 1, di)
+    out = (_gated_norm(y, z[:, None, :], params["norm_w"], fused)
+           @ params["out_proj"])
+    return out, hstate, conv_buf

@@ -1,6 +1,8 @@
-"""Decoder stack for the serving path — port of the attention parts of
-``repro/models/transformer.py`` (global and sliding-window local
-attention layers, each followed by a dense MLP or an MoE block).
+"""Model assembly — port of ``repro/models/transformer.py``: every block
+kind of ``configs/base.py`` (global and sliding-window local attention,
+each followed by a dense MLP or an MoE block; Mamba-1 and Mamba-2 blocks;
+zamba2's shared attention block) through init, the training forward and
+loss, the decode caches, prefill and decode.
 
 Parameters keep the reference's tree so tests compare leaf by leaf.  The
 layer pattern is factored by ``cfg.scan_groups()`` into ``n_groups``
@@ -14,40 +16,44 @@ blocks are not::
                        "mlp": {"w_up", "w_gate", "w_down"}: (G, ...)},
                        # or, with cfg.n_experts, "moe": {"router",
                        #   "w_up", "w_gate", "w_down"[, "dense"]}
+                       # or, for an SSM block, only "ln1" and "ssm"
                 "b1": ..., },
+     "shared": {"ln1", "attn", "ln2", "mlp"},     # zamba2 only
      "rem0": {"ln1": (D,), ...}, "rem1": ...}
 
 An all-global model (yi-9b) is one ``b0`` group per layer and no
 remainder; gemma3-27b's 62 layers are 10 groups of [local x 5, global]
-plus ``rem0``, ``rem1`` (both local).  Caches and KV trees have the same
-keys with ``{"k", "v"}`` leaves (G, B, S, KV, dh) in a group and
-(B, S, KV, dh) in the remainder; a local block's decode cache is a ring
-of ``min(max_seq, sliding_window)`` slots.  The reference's ``lax.scan``
-over the groups is a Python loop.  SSM and shared-attention blocks are
-not ported yet and raise ``NotImplementedError``.
+plus ``rem0``, ``rem1`` (both local); zamba2-2.7b's 54 are 9 groups of
+[Mamba-2 x 5, shared].  The shared block's parameters are one block
+outside ``groups`` (tied across its calls), so the group has no ``b5``
+parameters, but each call keeps its own cache slot ``groups.b5[g]``.
+Caches have the same keys: ``{"k", "v"}`` leaves (G, B, S, KV, dh) in a
+group and (B, S, KV, dh) in the remainder, a local block's a ring of
+``min(max_seq, sliding_window)`` slots; an SSM block's ``{"h", "conv"}``
+(float32 state, bf16 conv taps).  KV trees hold the attention blocks
+only.  The reference's ``lax.scan`` over the groups is a Python loop.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ArchConfig)
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA1,
+                                      MAMBA2, SHARED_ATTN, ArchConfig)
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.pytree import tree_leaves, tree_map
 
 DTYPE = layers.DTYPE
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md, Queue 1 item 4: SSM and shared "
-               "attention, and the training forward): the port runs global "
-               "and local attention layers with dense MLP or MoE blocks")
+
+def _is_attn(kind: str) -> bool:
+    return kind in (ATTN_GLOBAL, ATTN_LOCAL, SHARED_ATTN)
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    kinds = set(cfg.layer_pattern())
-    if not kinds <= {ATTN_GLOBAL, ATTN_LOCAL}:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} are {_NOT_PORTED}")
+def _check_kind(kind: str) -> None:
+    if not _is_attn(kind) and kind not in (MAMBA1, MAMBA2):
+        raise ValueError(kind)
 
 
 def _blocks(cfg: ArchConfig):
@@ -69,44 +75,69 @@ def _block(tree: dict, key: str, g: int | None) -> dict:
     return tree_map(lambda a: a[g], tree["groups"][key])
 
 
+def _params_of(params: dict, key: str, g: int | None, kind: str) -> dict:
+    """A layer's parameters: the tied ``shared`` block for a shared
+    attention layer, else its own block."""
+    return params["shared"] if kind == SHARED_ATTN else _block(params, key, g)
+
+
 def _stacked(cfg: ArchConfig, fn) -> dict:
     """A tree with ``fn(kind, lead)`` for each block: ``lead = (G,)`` for
-    the group's blocks and ``()`` for the remainder's."""
+    the group's blocks and ``()`` for the remainder's; a block for which
+    ``fn`` gives None has no entry."""
     group, n_groups, rem = cfg.scan_groups()
     out = {}
     if n_groups > 0:
-        out["groups"] = {f"b{i}": fn(kind, (n_groups,))
-                         for i, kind in enumerate(group)}
+        groups = {f"b{i}": fn(kind, (n_groups,))
+                  for i, kind in enumerate(group)}
+        groups = {k: v for k, v in groups.items() if v is not None}
+        if groups:
+            out["groups"] = groups
     for i, kind in enumerate(rem):
-        out[f"rem{i}"] = fn(kind, ())
+        v = fn(kind, ())
+        if v is not None:
+            out[f"rem{i}"] = v
     return out
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
-    """The parameter tree's leaf shapes (group axis leading in
-    ``groups``)."""
-    _check_supported(cfg)
+    """The parameter tree with ``(shape, dtype)`` leaves (group axis
+    leading in ``groups``)."""
     d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
     kvd = cfg.n_kv_heads * cfg.d_head
-    embed = {"embed": (cfg.vocab_size, d)}
+    bf = lambda *shape: (shape, DTYPE)
+    embed = {"embed": bf(cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
-        embed["unembed"] = (d, cfg.vocab_size)
+        embed["unembed"] = bf(d, cfg.vocab_size)
 
     def block(kind, lead):
-        out = {"ln1": lead + (d,),
-               "attn": {"wq": lead + (d, hd), "wk": lead + (d, kvd),
-                        "wv": lead + (d, kvd), "wo": lead + (hd, d)},
-               "ln2": lead + (d,)}
-        if cfg.n_experts:
-            out["moe"] = moe.moe_shapes(cfg, lead)
+        _check_kind(kind)
+        out = {"ln1": bf(*lead, d)}
+        if kind == MAMBA1:
+            out["ssm"] = ssm.mamba1_shapes(cfg, lead)
             return out
-        mlp = {"w_up": lead + (d, cfg.d_ff), "w_down": lead + (cfg.d_ff, d)}
+        if kind == MAMBA2:
+            out["ssm"] = ssm.mamba2_shapes(cfg, lead)
+            return out
+        out["attn"] = {"wq": bf(*lead, d, hd), "wk": bf(*lead, d, kvd),
+                       "wv": bf(*lead, d, kvd), "wo": bf(*lead, hd, d)}
+        out["ln2"] = bf(*lead, d)
+        if cfg.n_experts and kind != SHARED_ATTN:
+            out["moe"] = tree_map(lambda s: (s, DTYPE),
+                                  moe.moe_shapes(cfg, lead))
+            return out
+        mlp = {"w_up": bf(*lead, d, cfg.d_ff), "w_down": bf(*lead, cfg.d_ff, d)}
         if cfg.mlp_gated:
-            mlp["w_gate"] = lead + (d, cfg.d_ff)
+            mlp["w_gate"] = bf(*lead, d, cfg.d_ff)
         out["mlp"] = mlp
         return out
 
-    return {"embed": embed, "final_ln": (d,), **_stacked(cfg, block)}
+    tree = {"embed": embed, "final_ln": bf(d),
+            **_stacked(cfg, lambda kind, lead: None if kind == SHARED_ATTN
+                       else block(kind, lead))}
+    if SHARED_ATTN in cfg.layer_pattern():
+        tree["shared"] = block(SHARED_ATTN, ())
+    return tree
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
@@ -114,33 +145,38 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     """Random parameters on ``device`` from a seeded ``torch.Generator``
     on that device, with the reference's ``dense_init`` scales
     (``fan_in ** -0.5``, 0.02 for the embedding and the MoE router, zero
-    norm weights).  The
-    bits differ from JAX's; tests carry JAX's weights across with
-    :func:`params_from_numpy` instead.  Layers are drawn one at a time so
-    the float32 draw never holds more than one layer's leaf."""
+    norm weights) and its SSM leaves (``ssm.init_leaf``: deterministic
+    ``a_log``, ``dt_b``, ``d_skip``, ``conv_b``, ``norm_w``; float32 where
+    the reference keeps float32).  The random bits differ from JAX's;
+    tests carry JAX's weights across with :func:`params_from_numpy`
+    instead.  Layers are drawn one at a time so the float32 draw never
+    holds more than one layer's leaf."""
     dev = resolve_device(device)
-    shapes = param_shapes(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def fill(path, shape):
-        if path[-1] in ("ln1", "ln2", "final_ln"):
-            return torch.zeros(shape, dtype=DTYPE, device=dev)
-        scale = 0.02 if path[-1] in ("embed", "router") else None
-        if path[0] != "groups":               # embedding or remainder
-            return layers.dense_init(gen, shape, scale=scale, device=dev)
-        out = torch.empty(shape, dtype=DTYPE, device=dev)
-        for i in range(shape[0]):             # stacked: one layer at a time
-            out[i] = layers.dense_init(gen, shape[1:], scale=scale,
-                                       device=dev)
-        return out
+    def one(path, shape, dtype):
+        name = path[-1]
+        if "ssm" in path:
+            return ssm.init_leaf(gen, name, shape, dtype, dev)
+        if name in ("ln1", "ln2", "final_ln"):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        scale = 0.02 if name in ("embed", "router") else None
+        return layers.dense_init(gen, shape, scale=scale, dtype=dtype,
+                                 device=dev)
 
     def walk(tree, path=()):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        return fill(path, tree)
+        shape, dtype = tree
+        if path[0] != "groups":               # embedding, shared, remainder
+            return one(path, shape, dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):             # stacked: one layer at a time
+            out[i] = one(path, shape[1:], dtype)
+        return out
 
-    return walk(shapes)
+    return walk(param_shapes(cfg))
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -154,9 +190,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
                       device: str | torch.device = "cuda") -> dict:
     """The reference's parameter tree, given as numpy arrays (bf16 as
     ``ml_dtypes.bfloat16``), as the port's parameters on ``device``.
-    Keys and shapes must match :func:`param_shapes` exactly."""
+    Keys, shapes and dtypes must match :func:`param_shapes` exactly."""
     dev = resolve_device(device)
-    shapes = param_shapes(cfg)
 
     def walk(t, s, path=()):
         if isinstance(s, dict):
@@ -165,12 +200,17 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
                                  f"has keys {sorted(t) if isinstance(t, dict) else t}"
                                  f", expected {sorted(s)}")
             return {k: walk(t[k], s[k], path + (k,)) for k in s}
-        if tuple(t.shape) != tuple(s):
+        shape, dtype = s
+        if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, "
-                             f"expected {tuple(s)}")
-        return _to_tensor(t, dev)
+                             f"expected {tuple(shape)}")
+        out = _to_tensor(t, dev)
+        if out.dtype != dtype:
+            raise ValueError(f"{'/'.join(path)}: dtype {t.dtype}, expected "
+                             f"{dtype}")
+        return out
 
-    return walk(tree, shapes)
+    return walk(tree, param_shapes(cfg))
 
 
 def param_count(params: dict) -> int:
@@ -193,21 +233,137 @@ def _embed_scaled(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
     return layers.embed(params["embed"], tokens) * scale
 
 
+def _input_embeds(params: dict, cfg: ArchConfig, batch: dict):
+    """The stack's input (B, S, D) bf16 from ``batch["embeds"]`` (B, P, D)
+    (a VLM's patches, an audio model's frames; tensor or numpy) followed
+    by the scaled embeddings of ``batch["tokens"]``, and its positions
+    0..S-1."""
+    dev = _device_of(params)
+    parts = []
+    if "embeds" in batch:
+        e = batch["embeds"]
+        e = e.to(dev) if torch.is_tensor(e) else _to_tensor(e, dev)
+        parts.append(e.to(DTYPE))
+    if "tokens" in batch:
+        parts.append(_embed_scaled(params, cfg, _tokens(batch["tokens"], dev)))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    b, s, _ = x.shape
+    return x, torch.arange(s, device=dev)[None].expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# One block, and the stack.
+# ---------------------------------------------------------------------------
+
+def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A block's feed-forward half: its MoE block, or its dense MLP."""
+    if "moe" in p:
+        return moe.moe_block(p["moe"], h, cfg)
+    return layers.mlp_block(p["mlp"], h, cfg)
+
+
+def _apply_block(p: dict, cfg: ArchConfig, kind: str, key: str,
+                 g: int | None, x: torch.Tensor, x32: torch.Tensor | None,
+                 mix):
+    """One block, ``x + mix(norm(x))`` — ``mix`` is the attention or the
+    SSM — then for an attention block ``+ ffn(norm)`` (the MLP, or the MoE
+    block of an MoE config); returns the bf16 residual and, inside a
+    group, its float32 sum.
+
+    Inside a group each norm reads the float32 sum of the residual add
+    before it, not its bf16 rounding, as the reference's compiled scan
+    body does: XLA drops the bf16 round trip between an add and the
+    float32 norm within one compiled body.  So ``x32`` carries the
+    previous block's sum within one group iteration (after an SSM block
+    too, and into zamba2's shared block); the first block of an iteration
+    reads the bf16 scan carry, and the remainder blocks, which the
+    reference runs op by op, round every add."""
+    fused = g is not None
+    h = layers.rms_norm(x32 if fused and key != "b0" else x,
+                        p["ln1"]).to(DTYPE)
+    s1 = x.float() + mix(h).float()
+    if not _is_attn(kind):
+        return s1.to(DTYPE), s1 if fused else None
+    x = s1.to(DTYPE)
+    h2 = layers.rms_norm(s1 if fused else x, p["ln2"]).to(DTYPE)
+    s2 = x.float() + _ffn(p, h2, cfg).float()
+    return s2.to(DTYPE), s2 if fused else None
+
+
+def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer):
+    """``x`` through every layer, ``mixer(key, g, kind, p)`` giving each
+    block's ``mix``; returns the final-normed hidden states."""
+    x32 = None
+    for key, g, kind in _blocks(cfg):
+        p = _params_of(params, key, g, kind)
+        x, x32 = _apply_block(p, cfg, kind, key, g, x, x32,
+                              mixer(key, g, kind, p))
+    return layers.rms_norm(x, params["final_ln"])
+
+
+_SSM_BLOCK = {MAMBA1: ssm.mamba1_block, MAMBA2: ssm.mamba2_block}
+_SSM_DECODE = {MAMBA1: ssm.mamba1_decode, MAMBA2: ssm.mamba2_decode}
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The trunk over ``batch`` ("tokens" and/or "embeds"): the final
+    hidden states (B, S, D) bf16, every position (the training and
+    encoder path)."""
+    x, positions = _input_embeds(params, cfg, batch)
+
+    def mixer(key, g, kind, p):
+        if _is_attn(kind):
+            return lambda h: layers.attention_block(
+                p["attn"], h, cfg, positions, local=kind == ATTN_LOCAL)
+        return lambda h: _SSM_BLOCK[kind](p["ssm"], h, cfg,
+                                          fused=g is not None)
+
+    return _run_stack(params, cfg, x, mixer)
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["labels"]`` (-1 =
+    masked); a VLM's loss covers only the text after its prefix embeds."""
+    x = forward(params, cfg, batch)
+    labels = _tokens(batch["labels"], x.device)
+    if "embeds" in batch and "tokens" in batch:
+        x = x[:, batch["embeds"].shape[1]:]
+    loss = layers.chunked_ce_loss(params["embed"], x, labels)
+    if cfg.n_experts:
+        # the reference's aux load-balance term is a no-op here: no term
+        # is added (moe.aux_load_balance_loss is its own entry point)
+        pass
+    return loss
+
+
 # ---------------------------------------------------------------------------
 # Decode caches, prefill and decode.
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: str | torch.device = "cuda") -> dict:
-    _check_supported(cfg)
     device = resolve_device(device)
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                             device=device)
 
-    def block(kind, lead):                # a local block keeps a ring
+    def block(kind, lead):
+        _check_kind(kind)
+        k1 = cfg.ssm_conv - 1
+        if kind == MAMBA1:
+            di = ssm.d_inner(cfg)
+            return {"h": zeros(lead + (batch, di, cfg.ssm_state),
+                               torch.float32),
+                    "conv": zeros(lead + (batch, k1, di), DTYPE)}
+        if kind == MAMBA2:
+            di = ssm.d_inner(cfg) + 2 * cfg.ssm_state
+            return {"h": zeros(lead + (batch, ssm.m2_heads(cfg),
+                                       cfg.ssm_head_dim, cfg.ssm_state),
+                               torch.float32),
+                    "conv": zeros(lead + (batch, k1, di), DTYPE)}
         slots = (min(max_seq, cfg.sliding_window) if kind == ATTN_LOCAL
-                 else max_seq)
+                 else max_seq)                # a local block keeps a ring
         shape = lead + (batch, slots, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=DTYPE, device=device)}
+        return {"k": zeros(shape, DTYPE), "v": zeros(shape, DTYPE)}
 
     return _stacked(cfg, block)
 
@@ -241,67 +397,51 @@ def _write_cache(bc: dict, k_all: torch.Tensor, v_all: torch.Tensor,
         bc["v"][:, :s_tot] = v_all.to(DTYPE)
 
 
-def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """A block's feed-forward half: its MoE block, or its dense MLP."""
-    if "moe" in p:
-        return moe.moe_block(p["moe"], h, cfg)
-    return layers.mlp_block(p["mlp"], h, cfg)
-
-
-def _apply_block(p: dict, cfg: ArchConfig, key: str, g: int | None,
-                 x: torch.Tensor, x32: torch.Tensor | None, attend):
-    """One attention block, ``x + attend(norm(x))`` then ``+ ffn(norm)``
-    (the MLP, or the MoE block of an MoE config);
-    returns the bf16 residual and, inside a group, its float32 sum.
-
-    Inside a group each norm reads the float32 sum of the residual add
-    before it, not its bf16 rounding, as the reference's compiled scan
-    body does: XLA drops the bf16 round trip between an add and the
-    float32 norm within one compiled body.  So ``x32`` carries the
-    previous block's sum within one group iteration; the first block of
-    an iteration reads the bf16 scan carry, and the remainder blocks,
-    which the reference runs op by op, round every add."""
-    fused = g is not None
-    h = layers.rms_norm(x32 if fused and key != "b0" else x,
-                        p["ln1"]).to(DTYPE)
-    s1 = x.float() + attend(h).float()
-    x = s1.to(DTYPE)
-    h2 = layers.rms_norm(s1 if fused else x, p["ln2"]).to(DTYPE)
-    s2 = x.float() + _ffn(p, h2, cfg).float()
-    return s2.to(DTYPE), s2 if fused else None
-
-
 def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
             prefix_kv: dict | None = None, return_kv: bool = False):
-    """Run the stack over a prompt and build the decode cache.  Returns
-    (last-token logits (B, V) float32, cache), plus the per-layer KV of
-    THIS call's tokens when ``return_kv``.
+    """Run the stack over a prompt ("tokens" and/or "embeds") and build
+    the decode cache.  Returns (last-token logits (B, V) float32, cache),
+    plus the per-layer KV of THIS call's tokens (attention blocks only)
+    when ``return_kv``.  An SSM block seeds its cache with its final
+    state and conv tail.
 
     ``prefix_kv`` resumes from a cached prefix (post-RoPE k/v of the first
-    P prompt tokens, every layer): ``batch["tokens"]`` then holds only the
-    suffix, whose positions start at P, and attention runs over prefix ++
-    suffix with ``q_offset=P`` — the same cache and logits as a full
-    prefill.  Local layers attend within the sliding window and keep the
-    last ``min(W, P + S)`` keys in their ring."""
-    _check_supported(cfg)
+    P prompt tokens, every layer; attention-only configs): ``batch``
+    then holds only the suffix, whose positions start at P, and attention
+    runs over prefix ++ suffix with ``q_offset=P`` — the same cache and
+    logits as a full prefill.  Local layers attend within the sliding
+    window and keep the last ``min(W, P + S)`` keys in their ring."""
+    if prefix_kv is not None and not resume_supported(cfg):
+        raise NotImplementedError(
+            f"prefix resume needs attention-only layers; {cfg.name} "
+            "has recurrent (SSM) state that chunk slabs cannot restore")
     dev = _device_of(params)
-    toks = _tokens(batch["tokens"], dev)
-    x = _embed_scaled(params, cfg, toks)
+    x, positions = _input_embeds(params, cfg, batch)
     b, s, _ = x.shape
     p_len = 0 if prefix_kv is None else prefix_length(prefix_kv)
-    positions = (torch.arange(s, device=dev) + p_len)[None].expand(b, s)
+    positions = positions + p_len
     cache = init_cache(cfg, b, max_seq, dev)
 
     def kv_block(kind, lead):
+        if not _is_attn(kind):
+            return None
         shape = lead + (b, s, cfg.n_kv_heads, cfg.d_head)
         return {"k": torch.empty(shape, dtype=DTYPE, device=dev),
                 "v": torch.empty(shape, dtype=DTYPE, device=dev)}
 
     kv_out = _stacked(cfg, kv_block) if return_kv else None
-    x32 = None
-    for key, g, kind in _blocks(cfg):
+
+    def mixer(key, g, kind, p):
+        bc = _block(cache, key, g)
+        if not _is_attn(kind):
+            def fill_state(h):
+                out, h_final, tail = _SSM_BLOCK[kind](
+                    p["ssm"], h, cfg, return_state=True, fused=g is not None)
+                bc["h"].copy_(h_final)
+                bc["conv"].copy_(tail)
+                return out
+            return fill_state
         local = kind == ATTN_LOCAL
-        p = _block(params, key, g)
 
         def attend(h):
             q, k, v = layers._qkv(p["attn"], h, cfg, positions)
@@ -315,15 +455,15 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
                 q, k_all, v_all, causal=cfg.causal and not cfg.encoder_only,
                 window=cfg.sliding_window if local else 0,
                 softcap=cfg.logit_softcap, q_offset=p_len)
-            _write_cache(_block(cache, key, g), k_all, v_all, local)
+            _write_cache(bc, k_all, v_all, local)
             if return_kv:
                 kv = _block(kv_out, key, g)
                 kv["k"].copy_(k)
                 kv["v"].copy_(v)
             return out.reshape(b, s, -1) @ p["attn"]["wo"]
+        return attend
 
-        x, x32 = _apply_block(p, cfg, key, g, x, x32, attend)
-    x = layers.rms_norm(x, params["final_ln"])
+    x = _run_stack(params, cfg, x, mixer)
     logits = layers.unembed_logits(params["embed"], x[:, -1:])[:, 0]
     if return_kv:
         return logits, cache, kv_out
@@ -334,27 +474,25 @@ def decode_step(params: dict, cfg: ArchConfig, tokens, cache: dict,
                 pos: int):
     """tokens: (B, 1) int; pos: the new token's position.  Returns
     (logits (B, V) float32, cache), the cache updated in place: a global
-    block writes slot ``pos``, a local block its ring slot ``pos % W``."""
-    _check_supported(cfg)
+    block writes slot ``pos``, a local block its ring slot ``pos % W``,
+    an SSM block its state and conv taps."""
     dev = _device_of(params)
     x = _embed_scaled(params, cfg, _tokens(tokens, dev))
     pos = int(pos)
-    x32 = None
-    for key, g, kind in _blocks(cfg):
-        p = _block(params, key, g)
+
+    def mixer(key, g, kind, p):
         bc = _block(cache, key, g)
+        if not _is_attn(kind):
+            return lambda h: _SSM_DECODE[kind](p["ssm"], h, cfg, bc["h"],
+                                               bc["conv"],
+                                               fused=g is not None)[0]
+        if kind == ATTN_LOCAL:
+            w = bc["k"].shape[1]
+            return lambda h: layers.decode_attention_ring(
+                p["attn"], h, cfg, bc["k"], bc["v"], pos, pos % w)[0]
+        return lambda h: layers.decode_attention(
+            p["attn"], h, cfg, bc["k"], bc["v"], pos)[0]
 
-        def attend(h):
-            if kind == ATTN_LOCAL:
-                w = bc["k"].shape[1]
-                out, _, _ = layers.decode_attention_ring(
-                    p["attn"], h, cfg, bc["k"], bc["v"], pos, pos % w)
-            else:
-                out, _, _ = layers.decode_attention(
-                    p["attn"], h, cfg, bc["k"], bc["v"], pos)
-            return out
-
-        x, x32 = _apply_block(p, cfg, key, g, x, x32, attend)
-    x = layers.rms_norm(x, params["final_ln"])
+    x = _run_stack(params, cfg, x, mixer)
     logits = layers.unembed_logits(params["embed"], x)[:, 0]
     return logits, cache

@@ -61,7 +61,7 @@ def plain_cache_decode(params: dict, cfg, tokens: np.ndarray, n: int):
                     p["attn"], h, cfg, bc["k"], bc["v"], s + t,
                     local=kind == ATTN_LOCAL)[0]
 
-            x, x32 = tf._apply_block(p, cfg, key, g, x, x32, attend)
+            x, x32 = tf._apply_block(p, cfg, kind, key, g, x, x32, attend)
         x = layers.rms_norm(x, params["final_ln"])
         logits = layers.unembed_logits(params["embed"], x)[:, 0]
         steps.append(logits)

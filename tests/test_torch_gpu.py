@@ -611,3 +611,50 @@ def test_moe_layers_on_card_match_cpu(exact_bf16_gemms):
         lg, cache = transformer.decode_step(params, cfg, nxt, cache, 40 + t)
         lc, cache_c = transformer.decode_step(params_cpu, cfg, nxt, cache_c,
                                               40 + t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind", ["mamba1", "mamba2"])
+def test_ssm_block_on_card_matches_cpu(kind, fused, exact_bf16_gemms):
+    """One Mamba-1 (reduced falcon-mamba) and one Mamba-2 (reduced
+    zamba2) block at S = 40 with ``return_state``, then 8 decode steps
+    from that state, on the card and on the CPU with the same weights:
+    outputs within rtol 1e-2/atol 5e-2, float32 states within rtol
+    1e-2/atol 1e-2 (the bf16 GEMMs that feed them round in another order
+    on the card), conv taps within the bf16 bound; ``fused`` runs the
+    compiled-body rounding (``_mm_f32`` on the card in decode)."""
+    _needs_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+    from repro_torch.pytree import tree_map
+    cfg = get_arch("falcon-mamba-7b" if kind == "mamba1"
+                   else "zamba2-2.7b").reduced()
+    init = ssm.init_mamba1 if kind == "mamba1" else ssm.init_mamba2
+    blk = ssm.mamba1_block if kind == "mamba1" else ssm.mamba2_block
+    dec = ssm.mamba1_decode if kind == "mamba1" else ssm.mamba2_decode
+    p = init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    p_cpu = tree_map(lambda a: a.cpu(), p)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    out = [blk(p, x.cuda(), cfg, return_state=True, fused=fused),
+           blk(p_cpu, x, cfg, return_state=True, fused=fused)]
+
+    def close(a, b, rtol=RTOL, atol=ATOL):
+        torch.testing.assert_close(a.float().cpu(), b.float(), rtol=rtol,
+                                   atol=atol)
+
+    (o, h, c), (oc, hc, cc) = out
+    close(o, oc)
+    close(h, hc, 1e-2, 1e-2)
+    close(c, cc)
+    for t in range(8):
+        xt = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(
+            np.float32)).to(torch.bfloat16)
+        o = dec(p, xt.cuda(), cfg, h, c, fused=fused)[0]
+        oc = dec(p_cpu, xt, cfg, hc, cc, fused=fused)[0]
+        assert h.is_cuda and torch.isfinite(o.float()).all()
+        close(o, oc)
+        close(h, hc, 1e-2, 1e-2)
+        close(c, cc)

@@ -516,8 +516,9 @@ def test_serve_main_tiny_prompt_reports_na(capsys):
     assert records[0].decoded.shape == (1, 2)
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-27b"])
-def test_serve_main_non_resume_decode_returns_tokens(arch):
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-27b", "falcon-mamba-7b",
+                                  "zamba2-2.7b"])
+def test_serve_main_non_resume_decode_returns_tokens(arch, capsys):
     records = t_serve.main(
         ["--arch", arch, "--reduced", "--device", "cpu", "--no-resume",
          "--requests", "2", "--batch", "1", "--prompt-len", "32",
@@ -526,6 +527,16 @@ def test_serve_main_non_resume_decode_returns_tokens(arch):
     for rec in records:
         assert rec.decoded.shape == (1, 3)
         assert rec.decoded.dtype.kind in "iu"
+        assert rec.resumed_chunks == 0
+    if arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        # recurrent layers: resume is off without --no-resume too, and
+        # the launcher says so
+        records = t_serve.main(
+            ["--arch", arch, "--reduced", "--device", "cpu", "--requests",
+             "2", "--batch", "1", "--prompt-len", "32", "--decode-tokens",
+             "2"])
+        assert [r.resumed_chunks for r in records] == [0, 0]
+        assert "resume path off" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
@@ -565,6 +576,34 @@ def test_httpd_end_to_end_prefix_hit_resumes_decode(arch):
     finally:
         fe.shutdown()
         q.close()
+
+
+def test_httpd_recurrent_model_serves_without_resume(capsys):
+    """Reduced zamba2 (Mamba-2 layers and the shared attention block)
+    behind the edge: resume off, a "block" index, no slab store; a
+    repeated prompt hits every chunk, resumes none and decodes the same
+    tokens."""
+    fe, q = httpd.build_frontend(_httpd_args("zamba2-2.7b"))
+    fe.start()
+    try:
+        assert q.index.cfg.fingerprint == "block"
+        assert q.index.slab_store is None
+        toks = np.arange(1, 49, dtype=np.int32).reshape(1, 48) % 500 + 1
+        docs = []
+        for _ in range(2):
+            status, doc, _ = _req(fe, "POST", "/v1/generate",
+                                  {"tokens": toks.tolist()}, timeout=120)
+            assert status == 200
+            docs.append(doc)
+        assert np.asarray(docs[0]["tokens"]).shape == (1, 3)
+        assert (docs[0]["hit_chunks"], docs[1]["hit_chunks"]) == (0, 3)
+        assert docs[0]["resumed_chunks"] == docs[1]["resumed_chunks"] == 0
+        assert docs[1]["tokens"] == docs[0]["tokens"]
+        assert _req(fe, "GET", "/healthz")[0] == 200
+    finally:
+        fe.shutdown()
+        q.close()
+    assert "resume off" in capsys.readouterr().out
 
 
 def test_httpd_tokens_match_reference():

@@ -1,7 +1,8 @@
 """Parity: the port's transformer (reduced yi-9b, and reduced gemma3 with
 its local/global layer groups, remainder blocks and ring caches) against
 the JAX reference, with JAX's own weights carried across by
-``transformer.params_from_numpy``.
+``transformer.params_from_numpy``; and every arch's reduced config built
+with the reference's parameter and cache trees.
 
 Both sides run bf16; outputs must agree within ``rtol=1e-2, atol=5e-2``
 (the reference's own non-exact bound, tests/test_decode_resume.py), and
@@ -162,18 +163,69 @@ def test_greedy_decode_matches(models):
                         np.stack(gaps, 1))
 
 
-def test_unported_layer_kinds_raise():
-    """Global and local attention, with dense MLP or MoE blocks, are
-    ported (qwen3-moe now builds); SSM and shared attention still raise
-    and name their queue item."""
-    for arch in ("gemma3-27b", "qwen3-moe-30b-a3b"):
-        cfg = t_configs.get_arch(arch).reduced()
-        assert t_tf.param_count(t_tf.init_params(cfg, device="cpu")) > 0
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
-        cfg = t_configs.get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError,
-                           match="not ported.*item 4: SSM and shared"):
-            t_tf.init_params(cfg, device="cpu")
+def _leaf_specs(tree) -> dict:
+    """{path: (shape, dtype name)} of a tree of (shape, torch dtype)
+    pairs or of arrays (JAX shape structs, tensors)."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, tuple):
+            out[path] = (tuple(t[0]), str(t[1]).replace("torch.", ""))
+        else:
+            out[path] = (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+    walk(tree, ())
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(t_configs.ARCHS))
+def test_every_arch_builds_with_the_reference_tree(arch):
+    """Every block kind is ported: each arch's reduced config builds its
+    parameters, caches and parameter count, and ``param_shapes`` is the
+    reference's ``init_params`` tree (``jax.eval_shape``), shapes and
+    dtypes, as are the built parameters and caches."""
+    jcfg = j_configs.get_arch(arch).reduced()
+    tcfg = t_configs.get_arch(arch).reduced()
+    want = _leaf_specs(jax.eval_shape(
+        lambda: j_tf.init_params(jax.random.PRNGKey(0), jcfg)))
+    assert _leaf_specs(t_tf.param_shapes(tcfg)) == want
+    params = t_tf.init_params(tcfg, device="cpu")
+    assert _leaf_specs(params) == want
+    assert t_tf.param_count(params) == sum(
+        int(np.prod(s)) for s, _ in want.values())
+    assert _leaf_specs(t_tf.init_cache(tcfg, 2, 40, device="cpu")) == \
+        _leaf_specs(jax.eval_shape(lambda: j_tf.init_cache(jcfg, 2, 40)))
+
+
+@pytest.mark.parametrize("arch", sorted(t_configs.ARCHS))
+def test_every_arch_runs_forward_prefill_decode(arch):
+    """Every reduced config runs ``forward``, ``prefill`` and one
+    ``decode_step`` on its own seeded weights, on tokens, on embeddings
+    (hubert's frames) or on both (paligemma's image prefix): the shapes
+    the reference gives and finite values."""
+    cfg = t_configs.get_arch(arch).reduced()
+    params = t_tf.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(0)
+    b, s = 2, 20
+    batch = {}
+    if cfg.family in ("vlm", "audio"):
+        p = cfg.n_prefix_embeds if cfg.family == "vlm" else s
+        batch["embeds"] = rng.standard_normal((b, p, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family != "audio":
+        batch["tokens"] = rng.integers(1, cfg.vocab_size, (b, s))
+    total = sum(v.shape[1] for v in batch.values())
+    x = t_tf.forward(params, cfg, batch)
+    assert tuple(x.shape) == (b, total, cfg.d_model)
+    assert torch.isfinite(x.float()).all()
+    logits, cache = t_tf.prefill(params, cfg, batch, total + 1)
+    assert tuple(logits.shape) == (b, cfg.vocab_size)
+    logits, cache = t_tf.decode_step(params, cfg, logits.argmax(-1)[:, None],
+                                     cache, total)
+    assert tuple(logits.shape) == (b, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_init_params_on_device_scales():

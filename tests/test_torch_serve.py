@@ -1,7 +1,8 @@
 """The whole slice end to end: ``run_request_loop`` + ``AdmitQueue`` +
 ``PrefixResumeEngine`` on reduced yi-9b in both packages over the same
-zipf-ish request batches; plus the port's isolation from JAX and from
-the reference package."""
+zipf-ish request batches, and reduced falcon-mamba and zamba2 on the
+resume-off path; plus the port's isolation from JAX and from the
+reference package."""
 from __future__ import annotations
 
 import ast
@@ -21,6 +22,7 @@ from repro.launch import serve as j_serve
 from repro.models import transformer as j_tf
 from repro.serve import admit_queue as j_aq
 from repro.serve import kv_index as j_kv
+from repro.serve import step as j_step
 from repro_torch import configs as t_configs
 from repro_torch.kernels.xam_search import ops as t_ops
 from repro_torch.launch import serve as t_serve
@@ -66,34 +68,72 @@ def _j_decode_fn(engine, gaps):
     return decode_fn
 
 
-@pytest.mark.parametrize("background", [False, True])
-def test_request_loop_matches_reference(background):
-    jcfg = dataclasses.replace(j_configs.get_arch("yi-9b").reduced(),
-                               n_layers=N_LAYERS)
-    tcfg = dataclasses.replace(t_configs.get_arch("yi-9b").reduced(),
-                               n_layers=N_LAYERS)
+def _j_plain_fns(jp, jcfg, max_seq: int, gaps: list):
+    """The reference's non-resume pair (jitted prefill and greedy decode,
+    as its ``build_model_fns(resume=False)``), its decode also recording
+    the top-1/top-2 logit gap of every emitted token."""
+    prefill = jax.jit(j_step.make_prefill_step(jcfg, max_seq))
+    decode = jax.jit(j_step.make_decode_step(jcfg))
+
+    def prefill_fn(toks, hits):
+        return prefill(jp, {"tokens": jnp.asarray(toks)})
+
+    def decode_fn(toks, state):
+        logits, cache = state
+        outs, g = [], []
+        for t in range(DECODE):
+            lg = np.asarray(logits)
+            outs.append(lg.argmax(-1))
+            g.append(_top2_gap(lg))
+            nxt = jnp.asarray(outs[-1].astype(np.int32)[:, None])
+            _, logits, cache = decode(jp, cache, nxt,
+                                      jnp.int32(toks.shape[1] + t))
+        gaps.append(np.stack(g, 1))
+        return np.stack(outs, 1)
+
+    return prefill_fn, decode_fn
+
+
+#: yi-9b on the resume path; the recurrent models with resume off and a
+#: "block" index (as both launchers serve them): hits counted, every
+#: prefill full.
+@pytest.mark.parametrize("arch,background", [
+    ("yi-9b", False), ("yi-9b", True), ("falcon-mamba-7b", False),
+    ("zamba2-2.7b", True)],
+    ids=["False", "True", "falcon-mamba-7b-False", "zamba2-2.7b-True"])
+def test_request_loop_matches_reference(arch, background):
+    jcfg, tcfg = (c.get_arch(arch).reduced() for c in (j_configs, t_configs))
+    if arch == "yi-9b":
+        jcfg, tcfg = (dataclasses.replace(c, n_layers=N_LAYERS)
+                      for c in (jcfg, tcfg))
+    resume = t_tf.resume_supported(tcfg)
     jp = j_tf.init_params(jax.random.PRNGKey(0), jcfg)
     tp = t_tf.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
                                 device="cpu")
-    kv = dict(n_sets=8, fingerprint="prefix", admit_after_reads=0)
+    kv = dict(n_sets=8, fingerprint="prefix" if resume else "block",
+              admit_after_reads=0)
     ji = j_kv.MonarchKVIndex(j_kv.KVIndexConfig(**kv),
-                             slab_store=j_kv.KVSlabStore())
-    ti = t_kv.MonarchKVIndex(t_kv.KVIndexConfig(**kv),
-                             slab_store=t_kv.KVSlabStore(), device="cpu")
+                             slab_store=j_kv.KVSlabStore() if resume else None)
+    ti = t_kv.MonarchKVIndex(t_kv.KVIndexConfig(**kv), device="cpu",
+                             slab_store=t_kv.KVSlabStore() if resume else None)
     jq = j_aq.AdmitQueue(ji, background=background)
     tq = t_aq.AdmitQueue(ti, background=background)
     max_seq = S + DECODE
-    j_pf, _, j_eng = j_serve.build_model_fns(
-        jp, jcfg, max_seq=max_seq, decode_tokens=DECODE, index=ji,
-        resume=True)
+    gaps: list = []
+    if resume:
+        j_pf, _, j_eng = j_serve.build_model_fns(
+            jp, jcfg, max_seq=max_seq, decode_tokens=DECODE, index=ji,
+            resume=True)
+        j_df = _j_decode_fn(j_eng, gaps)
+    else:
+        j_pf, j_df = _j_plain_fns(jp, jcfg, max_seq, gaps)
     t_pf, t_df, t_eng = t_serve.build_model_fns(
         tp, tcfg, max_seq=max_seq, decode_tokens=DECODE, index=ti,
-        resume=True)
-    gaps: list = []
+        resume=resume)
     reqs = _requests(tcfg.vocab_size)
     launches = t_ops.LAUNCH_COUNT
     jrec = j_serve.run_request_loop(jq, reqs, prefill_fn=j_pf,
-                                    decode_fn=_j_decode_fn(j_eng, gaps))
+                                    decode_fn=j_df)
     trec = t_serve.run_request_loop(tq, reqs, prefill_fn=t_pf,
                                     decode_fn=t_df)
     jq.close()
@@ -104,11 +144,16 @@ def test_request_loop_matches_reference(background):
             j.chunks, j.hit_chunks, j.resumed_chunks, j.admitted), i
         assert t.decoded.shape == j.decoded.shape == (B, DECODE)
         assert_greedy_agree(t.decoded, j.decoded, gaps[i])
-    assert sum(r.resumed_chunks for r in trec) > 0
-    assert t_eng.resumed_chunks == j_eng.resumed_chunks
-    assert ti.slab_store.resident_bytes == ji.slab_store.resident_bytes
-    assert ti.slab_lockstep_report() == {"missing_slabs": [],
-                                         "orphan_slabs": []}
+    assert sum(r.hit_chunks for r in trec) > 0
+    if resume:
+        assert sum(r.resumed_chunks for r in trec) > 0
+        assert t_eng.resumed_chunks == j_eng.resumed_chunks
+        assert ti.slab_store.resident_bytes == ji.slab_store.resident_bytes
+        assert ti.slab_lockstep_report() == {"missing_slabs": [],
+                                             "orphan_slabs": []}
+    else:
+        assert t_eng is None and ti.slab_store is None
+        assert all(r.resumed_chunks == 0 for r in trec)
     if background:
         # the async worker may stamp t_MWW cycles at another point of
         # the op clock, so only the placement state is held exactly
