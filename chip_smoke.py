@@ -82,6 +82,28 @@ code 1) on failure:
    resumes; checked and timed as phase 3b's edge, decode beside its
    weight-read bound (every weight but the embedding table, zamba2's
    shared block once per call).
+3e. Training.  phase 3d's models are freed first and the card's
+   allocated memory must be back to its level before phase 3.  (a) One
+   train step (``train.step.loss_and_grads``) at full width, B x S = 2
+   x 64, card against CPU from the same float32 masters: yi-9b at 2
+   layers with 1 and 2 microbatches, zamba2-2.7b at one group (6 layers,
+   one shared-block call), falcon-mamba-7b at 2 layers (the selective
+   scan's backward); the loss within 1e-3, the gradients' global norm
+   within 2e-2 and every leaf's gradient within 5e-2 relative L2; then
+   ``adamw_update`` on both devices with the CPU's gradients, params, m
+   and v within 1e-6 of each leaf's largest magnitude.  (b) The 10m
+   preset of ``examples/train_lm_torch.py``: 4 steps straight against 2
+   steps, ``checkpoint.save``, ``restore_latest`` and 2 more, params
+   within rtol 1e-5/atol 1e-6.  (c) zamba2-2.7b at full width and depth
+   (2.06 B parameters) through ``repro_torch.launch.train.main``: 6
+   steps of 2 x 512 tokens, every loss and gradient norm finite, the
+   optimizer step at 6; median step time after the first, tokens/s,
+   peak memory and the share of the 6 N tokens model-FLOP bound at the
+   dense bf16 peak.  (d) ``examples/train_lm_torch.py --preset 100m``:
+   60 steps of 4 x 256 with a checkpoint at step 30, the loss DOWN, and
+   a rerun to 64 steps that restores step 60.  Temporary checkpoint
+   directories are removed.  The training path launches none of the
+   four kernels.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -1559,6 +1581,284 @@ def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3e: training — the train step card against CPU, restart
+# equivalence, zamba2-2.7b at full size through the launcher, the example.
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor rate
+TRAIN_B, TRAIN_S = 2, 64
+#: (arch, layers, microbatches) of the card-vs-CPU train steps
+TRAIN_STEPS = (("yi-9b", 2, 1), ("yi-9b", 2, 2), ("zamba2-2.7b", 6, 1),
+               ("falcon-mamba-7b", 2, 1))
+#: card against CPU, the same masters and batch: the loss within
+#: TRAIN_LOSS_RTOL, the gradients' global norm within TRAIN_GNORM_RTOL, and
+#: every leaf's gradient within TRAIN_GRAD_RTOL relative L2 error — the
+#: bound the CPU holds the port's gradients to against the reference
+#: (tests/test_torch_train_grads.py): bf16 backward passes whose GEMMs
+#: round in other places.  adamw_update on the same float32 gradients:
+#: params, m and v within ADAM_RTOL of the CPU's, relative to each leaf's
+#: largest magnitude (the clip scale comes from each device's own norm).
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-3, 2e-2, 5e-2
+ADAM_RTOL = 1e-6
+#: restart equivalence: tests/test_distribution.py's bound
+RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6
+ZAMBA_TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--steps", "6", "--batch", "2",
+                    "--seq", "512", "--device", "cuda"]
+EXAMPLE_STEPS, EXAMPLE_CKPT_AT, EXAMPLE_RERUN_STEPS = 60, 30, 64
+
+
+def rel_l2(np, got, want) -> float:
+    a = got.detach().double().cpu().numpy()
+    b = want.detach().double().cpu().numpy()
+    if not np.isfinite(a).all():
+        raise AssertionError("non-finite values on the card")
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def train_step_check(np, torch, arch: str, layers: int,
+                     microbatches: int) -> dict:
+    """(a) One train step at full width and ``layers`` layers, B x S =
+    2 x 64: ``step.loss_and_grads`` on the card and on the CPU from the
+    same float32 masters (drawn on the card, copied), loss, global norm
+    and each leaf's gradient held to their bounds; then
+    ``optimizer.adamw_update`` on both devices with the CPU's gradients,
+    params, m and v held to ADAM_RTOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.pytree import tree_map, tree_paths
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    state = step.init_state(11, cfg, device="cuda")
+    state_cpu = tree_map(lambda a: a.cpu(), state)
+    batch = pipeline.batch_at(pipeline.DataConfig(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=12), 0)
+    t0 = time.perf_counter()
+    loss, grads = step.loss_and_grads(cfg, state["params"], batch,
+                                      microbatches)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = step.loss_and_grads(cfg, state_cpu["params"], batch,
+                                          microbatches)
+    cpu_s = time.perf_counter() - t0
+    gn, gn_c = float(opt.global_norm(grads)), float(opt.global_norm(grads_c))
+    loss, loss_c = float(loss), float(loss_c)
+    errs = {"/".join(p): rel_l2(np, g, gc) for (p, g), (_, gc) in
+            zip(tree_paths(grads), tree_paths(grads_c))}
+    worst = max(errs, key=errs.get)
+    if not (np.isfinite(loss) and np.isfinite(gn)) or \
+            abs(loss - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c) or \
+            abs(gn - gn_c) > TRAIN_GNORM_RTOL * gn_c or \
+            errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(
+            f"{arch} x{layers} mb{microbatches} train step, card vs CPU: "
+            f"loss {loss} vs {loss_c}, grad norm {gn} vs {gn_c}, worst "
+            f"leaf {worst} {errs[worst]}")
+    ocfg = opt.OptConfig()
+    grads_on_card = tree_map(lambda g: g.cuda(), grads_c)
+    del grads
+    _, state["opt"], _ = opt.adamw_update(ocfg, state["params"],
+                                          state["opt"], grads_on_card)
+    _, state_cpu["opt"], _ = opt.adamw_update(
+        ocfg, state_cpu["params"], state_cpu["opt"], grads_c)
+    adam_err = 0.0
+    for name in ("params", "m", "v"):
+        tree = state["params"] if name == "params" else state["opt"][name]
+        tree_c = (state_cpu["params"] if name == "params"
+                  else state_cpu["opt"][name])
+        for (p, a), (_, b) in zip(tree_paths(tree), tree_paths(tree_c)):
+            err = float((a.cpu() - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            if err > ADAM_RTOL:
+                raise AssertionError(
+                    f"{arch} adamw_update card vs CPU, {name}/"
+                    f"{'/'.join(p)}: max |diff| {err} of the leaf's max")
+            adam_err = max(adam_err, err)
+    if int(state["opt"]["step"]) != 1:
+        raise AssertionError("the optimizer step did not advance")
+    log(f"{arch} at full width, {layers} layers, microbatches "
+        f"{microbatches}, {TRAIN_B} x {TRAIN_S}: loss {loss:.6f} (CPU "
+        f"{loss_c:.6f}), grad norm {gn:.6f} (CPU {gn_c:.6f}), worst leaf "
+        f"{worst} rel L2 {errs[worst]:.6f}; adamw card vs CPU max rel "
+        f"{adam_err:.3g}; card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    del state, state_cpu, grads_c, grads_on_card
+    return {"arch": arch, "layers": layers, "microbatches": microbatches,
+            "loss": loss, "loss_cpu": loss_c, "grad_norm": gn,
+            "grad_norm_cpu": gn_c, "worst_leaf": worst,
+            "worst_leaf_rel_l2": errs[worst],
+            "median_leaf_rel_l2": float(np.median(list(errs.values()))),
+            "adam_max_rel": adam_err, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def load_example(name: str):
+    """A module of ``examples/`` by file name (they are scripts, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def restart_check(np, torch, tmp: str) -> dict:
+    """(b) The 10m preset on the card: 4 steps straight against 2 steps,
+    ``checkpoint.save``, ``restore_latest`` and 2 more, every param within
+    rtol 1e-5/atol 1e-6 and both optimizer steps at 4."""
+    from repro_torch.data import pipeline
+    from repro_torch.dist import checkpoint
+    from repro_torch.pytree import tree_paths
+    from repro_torch.train import step
+
+    cfg = load_example("train_lm_torch").build_config("10m")
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                               global_batch=2, seed=3)
+    step_fn = step.make_train_step(cfg)
+    direct = step.init_state(0, cfg, device="cuda")
+    for i in range(4):
+        direct, _ = step_fn(direct, pipeline.batch_at(dcfg, i))
+    first = step.init_state(0, cfg, device="cuda")
+    for i in range(2):
+        first, _ = step_fn(first, pipeline.batch_at(dcfg, i))
+    checkpoint.save(tmp, 2, first, process_index=0)
+    at, resumed = checkpoint.restore_latest(tmp, first)
+    for i in range(at, 4):
+        resumed, _ = step_fn(resumed, pipeline.batch_at(dcfg, i))
+    if at != 2 or int(direct["opt"]["step"]) != 4 or \
+            int(resumed["opt"]["step"]) != 4:
+        raise AssertionError(f"restart: restored step {at}, steps "
+                             f"{int(direct['opt']['step'])}/"
+                             f"{int(resumed['opt']['step'])}")
+    d_max = 0.0
+    for (p, a), (_, b) in zip(tree_paths(direct["params"]),
+                              tree_paths(resumed["params"])):
+        d = (a - b).abs()
+        if (d > RESTART_ATOL + RESTART_RTOL * b.abs()).any():
+            raise AssertionError(f"restart: {'/'.join(p)} differs, max "
+                                 f"|diff| {float(d.max())}")
+        d_max = max(d_max, float(d.max()))
+    log(f"restart equivalence (10m preset, 4 steps vs 2 + checkpoint + "
+        f"2): params max |diff| {d_max:.3g}")
+    return {"preset": "10m", "params_max_abs_diff": d_max}
+
+
+def zamba_train_check(np, torch) -> dict:
+    """(c) zamba2-2.7b at full width and depth through
+    ``repro_torch.launch.train.main``: 6 steps of 2 x 512 tokens, every
+    loss and grad norm finite, the optimizer step at 6; the median step
+    time after the first, tokens/s, the peak memory and the share of the
+    6 N tokens model-FLOP bound at the card's dense bf16 peak."""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, history = train.main(ZAMBA_TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = int(state["opt"]["step"])
+    n_params = transformer.param_count(state["params"])
+    zamba_tree(state["params"])
+    if steps != 6 or len(history) != 6 or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+            for h in history):
+        raise AssertionError(f"zamba2-2.7b training: step {steps}, "
+                             f"history {history}")
+    step_s = statistics.median(h["seconds"] for h in history[1:])
+    tokens = 2 * 512
+    bound_s = 6 * n_params * tokens / BF16_FLOPS_PER_S
+    out = {"arch": "zamba2-2.7b", "params": n_params, "batch": 2,
+           "seq": 512, "steps": steps, "wall_s": wall,
+           "first_step_s": history[0]["seconds"], "median_step_s": step_s,
+           "step_s": [h["seconds"] for h in history],
+           "tokens_per_s": tokens / step_s, "peak_mem_bytes": peak,
+           "model_flop_bound_s": bound_s,
+           "model_flop_share": bound_s / step_s,
+           "losses": [h["loss"] for h in history],
+           "grad_norms": [h["grad_norm"] for h in history]}
+    log(f"zamba2-2.7b training ({n_params / 1e9:.3f} B params, 2 x 512): "
+        f"first step {history[0]['seconds']:.2f} s, median after "
+        f"{step_s:.3f} s, {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB, {out['model_flop_share']:.4f} of the "
+        f"{bound_s * 1e3:.1f} ms model-FLOP bound; losses "
+        f"{[round(x, 4) for x in out['losses']]}")
+    del state
+    return out
+
+
+def example_check(np, torch, tmp: str) -> dict:
+    """(d) ``examples/train_lm_torch.py --preset 100m``: 60 steps of 4 x
+    256 with a checkpoint at step 30; the loss must go DOWN; a rerun to 64
+    steps must restore the checkpoint published at step 60."""
+    import contextlib
+    import io
+    example = load_example("train_lm_torch")
+    argv = ["--preset", "100m", "--batch", "4", "--seq", "256",
+            "--ckpt-dir", tmp, "--ckpt-every", str(EXAMPLE_CKPT_AT),
+            "--device", "cuda"]
+    runs = []
+    for steps in (EXAMPLE_STEPS, EXAMPLE_RERUN_STEPS):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            first, last = example.main(argv + ["--steps", str(steps)])
+        runs.append((out.getvalue(), time.perf_counter() - t0, first, last))
+    text, wall, first, last = runs[0]
+    published = [f"step_{s}" for s in (EXAMPLE_CKPT_AT, EXAMPLE_STEPS)]
+    if "DOWN" not in text or not last < first or \
+            not all(f"published {tmp}/100m/{p}" in text for p in published):
+        raise AssertionError(f"train_lm_torch 100m run:\n{text}")
+    text2, wall2, _, _ = runs[1]
+    if f"restored checkpoint at step {EXAMPLE_STEPS}" not in text2:
+        raise AssertionError(f"train_lm_torch rerun:\n{text2}")
+    log(f"train_lm_torch 100m: loss {first:.4f} -> {last:.4f} over "
+        f"{EXAMPLE_STEPS} steps in {wall:.1f} s; rerun restored step "
+        f"{EXAMPLE_STEPS} and ran to {EXAMPLE_RERUN_STEPS} in {wall2:.1f} s")
+    return {"preset": "100m", "steps": EXAMPLE_STEPS, "first_loss": first,
+            "last_loss": last, "wall_s": wall, "rerun_wall_s": wall2}
+
+
+def train_phase(np, torch, smi: str, base_bytes: int) -> dict:
+    """Phase 3e: free the card of phase 3d, then (a) train steps card
+    against CPU, (b) restart equivalence, (c) zamba2-2.7b trained at full
+    size, (d) the 100m example with checkpoint and restart."""
+    import shutil
+    import tempfile
+
+    left = free_card(torch)
+    log(f"phase 3e: {left / 1e9:.4f} GB allocated after phase 3d "
+        f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3d left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    steps = []
+    for arch, layers, mb in TRAIN_STEPS:
+        steps.append(train_step_check(np, torch, arch, layers, mb))
+        free_card(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        restart = restart_check(np, torch, tmp + "/restart")
+        free_card(torch)
+        zamba = zamba_train_check(np, torch)
+        free_card(torch)
+        example = example_check(np, torch, tmp + "/example")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch)
+    wall = time.perf_counter() - t0
+    log(f"phase 3e: {wall:.1f} s")
+    report = {"steps": steps, "restart": restart, "zamba2_train": zamba,
+              "example": example, "wall_s": wall, "card": smi,
+              "allocated_after_phase3d_bytes": left}
+    print(json.dumps({"training": report}), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 1: build every kernel library, all nvcc runs started together.
 # ---------------------------------------------------------------------------
 
@@ -2646,6 +2946,7 @@ def main() -> int:
     gemma = gemma_phase(np, torch, smi, base_bytes)
     moe = moe_phase(np, torch, smi, base_bytes)
     ssm = ssm_phase(np, torch, smi, base_bytes)
+    training = train_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -2728,6 +3029,7 @@ def main() -> int:
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
                       "gemma3": gemma, "qwen3_moe": moe, "ssm": ssm,
+                      "training": training,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "card": smi}), flush=True)

@@ -1,5 +1,10 @@
-"""Chunk fingerprinting, YCSB key streams and CAM dedup (port of the
-hashing, YCSB and dedup parts of ``repro/data/pipeline.py``).
+"""The training token stream, chunk fingerprinting, YCSB key streams and
+CAM dedup — port of ``repro/data/pipeline.py``.
+
+Every training batch is a pure function of (seed, step, shard,
+n_shards), so a restarted or rescaled run recomputes any step's batch.
+Its zipf draws use numpy 2.0's sampler (``traces._zipf``), so the stream
+is the reference's on numpy 2.0 and stays the same on later numpy.
 
 Murmur3's 32-bit finalizer is the hash core: token chunks fold through it
 into uint32 fingerprints, which the serving index stores in its CAM
@@ -13,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.data.traces import _zipf
 from repro_torch.kernels.xam_search import ops as xam_ops
 
 _MASK32 = 0xFFFFFFFF
@@ -65,6 +71,35 @@ def prefix_fingerprint_blocks(tokens: np.ndarray,
         acc = murmur3_np(acc ^ blocks[:, i])
         out[:, i] = acc
     return out
+
+
+# ---------------------------------------------------------------------------
+# Token stream.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+
+def batch_at(cfg: DataConfig, step: int, shard: int = 0, n_shards: int = 1):
+    """Deterministic batch of one shard: ``{"tokens", "labels"}`` int32
+    (B/n_shards, S) numpy arrays, zipf tokens hashed into [1, V) with
+    every 8th position repeating the one before it."""
+    per = cfg.global_batch // n_shards
+    rng = np.random.default_rng(
+        np.uint64(cfg.seed) * np.uint64(1_000_003)
+        + np.uint64(step) * np.uint64(997) + np.uint64(shard))
+    z = _zipf(rng, cfg.zipf_a, per * (cfg.seq_len + 1)).reshape(
+        per, cfg.seq_len + 1)
+    toks = (murmur3_np(z.astype(np.uint32)) % np.uint32(cfg.vocab_size - 1)
+            + 1).astype(np.int32)
+    toks[:, 8::8] = toks[:, 7:-1:8]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,142 @@
+"""Atomic-publish checkpoints: write to ``step_N.tmp``, fsync, rename —
+port of ``repro/dist/checkpoint.py``, in the same on-disk format, so a
+checkpoint written by either package restores in the other.
+
+A checkpoint directory holds ``step_<N>/`` dirs; each contains one
+``leaf_<i>.npy`` per tree leaf plus ``manifest.json``.  Leaves are
+numbered in ``jax.tree.leaves`` order — dict keys sorted at every level
+(``pytree.tree_paths``) — not in the tree's insertion order.  A step dir
+WITHOUT a manifest is an unfinished writer crash and is ignored by
+readers and eventually garbage-collected by writers: the rename is the
+publish.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from repro_torch.pytree import tree_map_with_path, tree_paths
+
+MANIFEST = "manifest.json"
+_PREFIX = "step_"
+
+
+def _step_dir(root: str, step: int) -> str:
+    return os.path.join(root, f"{_PREFIX}{step}")
+
+
+def published_steps(root: str) -> list[int]:
+    """Sorted steps with a complete (manifest-bearing) checkpoint."""
+    if not os.path.isdir(root):
+        return []
+    steps = []
+    for name in os.listdir(root):
+        if not name.startswith(_PREFIX) or name.endswith(".tmp"):
+            continue
+        try:
+            step = int(name[len(_PREFIX):])
+        except ValueError:
+            continue
+        if os.path.exists(os.path.join(root, name, MANIFEST)):
+            steps.append(step)
+    return sorted(steps)
+
+
+def _gc(root: str, keep_last: int | None) -> None:
+    """Remove crashed-writer droppings and over-retention checkpoints."""
+    for name in os.listdir(root):
+        if name.endswith(".tmp"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    if keep_last is not None:
+        for step in published_steps(root)[:-keep_last]:
+            shutil.rmtree(_step_dir(root, step), ignore_errors=True)
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def save(root: str, step: int, state, keep_last: int | None = None,
+         process_index: int | None = None) -> str:
+    """Publish ``state`` (a dict tree of tensors or arrays) at ``step``;
+    returns the published directory.
+
+    Only process 0 writes (``process_index`` defaults to the
+    ``torch.distributed`` rank when a group is initialised, else 0); other
+    processes return the would-be path without touching disk."""
+    if process_index is None:
+        process_index = _rank()
+    final = _step_dir(root, step)
+    if process_index != 0:
+        return final
+    os.makedirs(root, exist_ok=True)
+    tmp = final + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    leaves = [leaf for _, leaf in tree_paths(state)]
+    for i, leaf in enumerate(leaves):
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach().cpu().numpy()
+        with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
+            np.save(f, np.asarray(leaf))
+            f.flush()
+            os.fsync(f.fileno())
+    with open(os.path.join(tmp, MANIFEST), "w") as f:
+        json.dump({"step": step, "n_leaves": len(leaves)}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    shutil.rmtree(final, ignore_errors=True)
+    os.rename(tmp, final)        # the atomic publish
+    # Make the rename itself durable before gc deletes older steps —
+    # otherwise a crash can surface the new dir with stale data blocks
+    # while the previous complete checkpoint is already gone.
+    dirfd = os.open(root, os.O_RDONLY)
+    try:
+        os.fsync(dirfd)
+    finally:
+        os.close(dirfd)
+    _gc(root, keep_last)
+    return final
+
+
+def restore(root: str, step: int, template, device=None):
+    """The checkpoint at ``step`` in ``template``'s structure: tensors with
+    each template leaf's dtype, on its device (or on ``device``).  Raises
+    ``ValueError`` when the leaf count, a shape or a dtype differs."""
+    d = _step_dir(root, step)
+    with open(os.path.join(d, MANIFEST)) as f:
+        manifest = json.load(f)
+    paths = tree_paths(template)
+    if manifest["n_leaves"] != len(paths):
+        raise ValueError(
+            f"checkpoint at {d} has {manifest['n_leaves']} leaves; "
+            f"template expects {len(paths)}")
+    index = {path: i for i, (path, _) in enumerate(paths)}
+
+    def load(path, want):
+        a = np.load(os.path.join(d, f"leaf_{index[path]}.npy"))
+        got = torch.from_numpy(a)
+        if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+            raise ValueError(
+                f"{d} leaf {index[path]} ({'/'.join(path)}): {got.dtype}"
+                f"{tuple(got.shape)}, template has {want.dtype}"
+                f"{tuple(want.shape)}")
+        return got.to(device if device is not None else want.device)
+
+    return tree_map_with_path(load, template)
+
+
+def restore_latest(root: str, template, device=None):
+    """(step, state) of the newest published checkpoint, or (0, None)."""
+    steps = published_steps(root)
+    if not steps:
+        return 0, None
+    step = steps[-1]
+    return step, restore(root, step, template, device)

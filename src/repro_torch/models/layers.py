@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -293,21 +294,36 @@ def unembed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _chunk_nll(params: dict, xc: torch.Tensor,
+               lc: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk's labels >= 0."""
+    logits = unembed_logits(params, xc)                     # (B, C, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+    return torch.where(lc >= 0, logz - gold, 0.0).sum()
+
+
 def chunked_ce_loss(params: dict, x: torch.Tensor, labels: torch.Tensor, *,
                     chunk: int = 512) -> torch.Tensor:
     """Mean cross-entropy over the vocabulary of the labels >= 0 (-1 =
     masked), over ``chunk`` positions at a time so the (B, S, V) float32
-    logits are never resident whole.  x: (B, S, D) bf16; labels (B, S)."""
+    logits are never resident whole.  x: (B, S, D) bf16; labels (B, S).
+    With grad enabled each chunk is rematerialised (``torch.utils.
+    checkpoint``, as the reference's ``jax.checkpoint`` of its chunk
+    body), so the backward pass holds one chunk's logits at a time."""
     s = x.shape[1]
     chunk = min(chunk, s)
+    remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.int64, device=x.device)
     for lo in range(0, s, chunk):
         lc = labels[:, lo:lo + chunk]
-        logits = unembed_logits(params, x[:, lo:lo + chunk])  # (B, C, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
-        valid = lc >= 0
-        total = total + torch.where(valid, logz - gold, 0.0).sum()
-        count = count + valid.sum()
+        xc = x[:, lo:lo + chunk]
+        if remat:
+            nll = checkpoint(_chunk_nll, params, xc, lc, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            nll = _chunk_nll(params, xc, lc)
+        total = total + nll
+        count = count + (lc >= 0).sum()
     return total / count.clamp_min(1).float()

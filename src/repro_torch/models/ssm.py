@@ -5,10 +5,10 @@ of tensors, in the style of ``models/moe.py``.
 Both blocks run chunk by chunk over the sequence, so the discretized
 (B, L, d_inner, N) tensors exist one chunk at a time.  The reference's
 ``lax.scan`` over chunks is a Python loop, and so is Mamba-1's scan over
-the steps inside a chunk: one ``addcmul`` launch a step, ``h = h * dA +
-dBx`` written into the chunk's ``dBx`` buffer, whose rows are then the
-chunk's states for the output contraction.  Mamba-1 skips the padded
-steps of a last partial chunk: they have ``dt = 0``, so ``dA = 1`` and
+the steps inside a chunk: one ``addcmul`` launch a step, ``h = dBx + h *
+dA`` out of place (autograd saves each ``h``), the chunk's states then
+stacked for the output contraction.  Mamba-1 skips the padded steps of a
+last partial chunk: they have ``dt = 0``, so ``dA = 1`` and
 ``dBx = 0`` and they would leave the state exactly as it is.  Mamba-2
 pads as the reference does (its chunk is one set of contractions).
 
@@ -194,13 +194,14 @@ def _selective_scan(dt, xh, b_in, c_in, a, chunk: int):
         da = torch.exp(dtc[..., None] * a)                  # (L, B, di, N)
         xc = xh[:, lo:hi].transpose(0, 1).float()
         bc = b_in[:, lo:hi].transpose(0, 1).float()
-        hs = (dtc * xc)[..., None] * bc[:, :, None, :]      # dBx, then h_t
-        for t in range(hi - lo):
-            hs[t].addcmul_(h, da[t])
-            h = hs[t]
+        dbx = (dtc * xc)[..., None] * bc[:, :, None, :]
+        hs = []
+        for t in range(hi - lo):          # out of place: autograd saves h
+            h = torch.addcmul(dbx[t], h, da[t])
+            hs.append(h)
         cc = c_in[:, lo:hi].transpose(0, 1).float()
-        y[:, lo:hi] = torch.einsum("lbdn,lbn->bld", hs, cc)
-    return y, h.clone()
+        y[:, lo:hi] = torch.einsum("lbdn,lbn->bld", torch.stack(hs), cc)
+    return y, h
 
 
 def mamba1_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -316,9 +317,12 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         d, bc, ccc = dtc[:, ci], bb[:, ci], cc[:, ci]
         cs = torch.cumsum(la[:, ci], dim=1)                      # (B,L,H)
         # intra-chunk term; exp(cs_i - cs_j) overflows above the
-        # diagonal, so it is masked by where (never by multiplying 0)
+        # diagonal, so the exponent is masked to -inf before the exp: the
+        # same values as masking exp's output, and a finite gradient
+        # (masking after the exp leaves 0 * inf = NaN in the backward
+        # pass once a chunk's decay passes e^88, as the reference's does)
         seg = cs[:, :, None, :] - cs[:, None, :, :]              # (B,L,L,H)
-        decay = torch.where(causal, torch.exp(seg), 0.0)
+        decay = torch.exp(torch.where(causal, seg, -torch.inf))
         cb = torch.einsum("bin,bjn->bij", ccc, bc)
         w = cb[..., None] * decay
         y_diag = torch.einsum("bijh,bjhp->bihp", w, xc * d[..., None])

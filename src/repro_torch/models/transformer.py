@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA1,
                                       MAMBA2, SHARED_ATTN, ArchConfig)
@@ -69,7 +70,8 @@ def _blocks(cfg: ArchConfig):
 
 def _block(tree: dict, key: str, g: int | None) -> dict:
     """The block ``key`` of a parameter, cache or KV tree, at group ``g``
-    (a view into the stacked leaves) or in the remainder."""
+    (a view into the stacked leaves, or the g-th of a leaf that
+    :func:`forward` has unbound into a tuple) or in the remainder."""
     if g is None:
         return tree[key]
     return tree_map(lambda a: a[g], tree["groups"][key])
@@ -141,7 +143,8 @@ def param_shapes(cfg: ArchConfig) -> dict:
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                generator: torch.Generator | None = None) -> dict:
     """Random parameters on ``device`` from a seeded ``torch.Generator``
     on that device, with the reference's ``dense_init`` scales
     (``fan_in ** -0.5``, 0.02 for the embedding and the MoE router, zero
@@ -150,10 +153,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     the reference keeps float32).  The random bits differ from JAX's;
     tests carry JAX's weights across with :func:`params_from_numpy`
     instead.  Layers are drawn one at a time so the float32 draw never
-    holds more than one layer's leaf."""
+    holds more than one layer's leaf.  A ``generator`` (on ``device``)
+    replaces the one made from ``seed``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
 
     def one(path, shape, dtype):
         name = path[-1]
@@ -290,14 +296,35 @@ def _apply_block(p: dict, cfg: ArchConfig, kind: str, key: str,
     return s2.to(DTYPE), s2 if fused else None
 
 
-def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer):
+def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer, *,
+               remat: bool = False):
     """``x`` through every layer, ``mixer(key, g, kind, p)`` giving each
-    block's ``mix``; returns the final-normed hidden states."""
-    x32 = None
-    for key, g, kind in _blocks(cfg):
-        p = _params_of(params, key, g, kind)
-        x, x32 = _apply_block(p, cfg, kind, key, g, x, x32,
-                              mixer(key, g, kind, p))
+    block's ``mix``; returns the final-normed hidden states.
+
+    Layer group by layer group, then the remainder blocks: the float32
+    sum ``x32`` never crosses a group's end (the next group's ``b0``
+    reads the bf16 carry).  ``remat`` runs each group under
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body: a group keeps only its input for the backward pass and
+    runs again there.  The forward values are the same either way."""
+    group, n_groups, rem = cfg.scan_groups()
+
+    def run(x, blocks):
+        x32 = None
+        for key, g, kind in blocks:
+            p = _params_of(params, key, g, kind)
+            x, x32 = _apply_block(p, cfg, kind, key, g, x, x32,
+                                  mixer(key, g, kind, p))
+        return x
+
+    for g in range(n_groups):
+        blocks = [(f"b{i}", g, kind) for i, kind in enumerate(group)]
+        if remat:
+            x = checkpoint(run, x, blocks, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = run(x, blocks)
+    x = run(x, [(f"rem{i}", None, kind) for i, kind in enumerate(rem)])
     return layers.rms_norm(x, params["final_ln"])
 
 
@@ -308,7 +335,14 @@ _SSM_DECODE = {MAMBA1: ssm.mamba1_decode, MAMBA2: ssm.mamba2_decode}
 def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """The trunk over ``batch`` ("tokens" and/or "embeds"): the final
     hidden states (B, S, D) bf16, every position (the training and
-    encoder path)."""
+    encoder path).  With grad enabled each layer group is rematerialised
+    (:func:`_run_stack`), and a group's stacked leaves are split once
+    with ``unbind`` so their gradients are stacked once, not summed from
+    one zero-padded copy per group."""
+    remat = torch.is_grad_enabled()
+    if remat and "groups" in params:
+        params = dict(params, groups=tree_map(lambda a: a.unbind(0),
+                                              params["groups"]))
     x, positions = _input_embeds(params, cfg, batch)
 
     def mixer(key, g, kind, p):
@@ -318,7 +352,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
         return lambda h: _SSM_BLOCK[kind](p["ssm"], h, cfg,
                                           fused=g is not None)
 
-    return _run_stack(params, cfg, x, mixer)
+    return _run_stack(params, cfg, x, mixer, remat=remat)
 
 
 def train_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:

@@ -32,3 +32,24 @@ def tree_leaves(tree) -> list:
         return [leaf for f in dataclasses.fields(tree)
                 for leaf in tree_leaves(getattr(tree, f.name))]
     return [tree]
+
+
+def tree_paths(tree, path: tuple = ()) -> list:
+    """``(path, leaf)`` pairs of a nested-dict tree in ``jax.tree.leaves``
+    order: dict keys sorted at every level (not insertion order, as
+    :func:`tree_leaves` gives).  Optimizer sums and checkpoint files
+    follow this order, so they line up with the reference's."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_paths(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, *rest, path: tuple = ()):
+    """``fn(path, leaf, *other_leaves)`` over nested dicts, keeping the
+    first tree's key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)

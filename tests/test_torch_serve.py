@@ -190,7 +190,7 @@ _BLOCKED = ("jax", "jaxlib", "repro")
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -224,9 +224,15 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+sys.path.insert(0, "examples")
+import train_lm_torch
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
 assert {{"repro_torch.serve.http_frontend",
-         "repro_torch.launch.httpd", "repro_torch.models.moe"}} <= set(mods)
+         "repro_torch.launch.httpd", "repro_torch.models.moe",
+         "repro_torch.train.step", "repro_torch.train.optimizer",
+         "repro_torch.launch.train", "repro_torch.dist.checkpoint",
+         "repro_torch.dist.compression", "repro_torch.dist.elastic",
+         "repro_torch.dist.straggler"}} <= set(mods)
 print("imported", len(mods))
 """
 
