@@ -99,7 +99,7 @@ code 1) on failure:
    steps of 2 x 512 tokens, every loss and gradient norm finite, the
    optimizer step at 6; median step time after the first, tokens/s,
    peak memory and the share of the 6 N tokens model-FLOP bound at the
-   dense bf16 peak.  (d) ``examples/train_lm_torch.py --preset 100m``:
+   dense bf16 peak; then one more step with its FLOPs counted (phase 8).  (d) ``examples/train_lm_torch.py --preset 100m``:
    60 steps of 4 x 256 with a checkpoint at step 30, the loss DOWN, and
    a rerun to 64 steps that restores step 60.  Temporary checkpoint
    directories are removed.  The training path launches none of the
@@ -140,11 +140,30 @@ code 1) on failure:
    reproduced exactly.  Per family: wall time, µs per step replayed and
    eager (a 64-step window), kernels per step in the captured graph; and
    the peak device memory.  The path launches none of the four kernels.
+8. The tooling.  (a) ``roofline.analysis.current_machine()`` must be
+   ``h100-sxm`` on the card (the bounds above read that profile).  (b)
+   ``kernels.autotune.autotune`` sweeps the multi-set search's query-block
+   width into a temporary cache (int8 and packed8, block_q 8 to 128, at
+   the batches the serving path sends: 12 and 96 queries over 8 sets,
+   256 over 32, 4096 over 128), timing each by CUDA-graph replay (warm
+   L2); every candidate's answers, on the sweep's inputs and with
+   planted hits, equal the cold width's and the plain version's bit for
+   bit, and each candidate's cold-L2 device time (``graph_ms``) stands
+   beside the sweep's; the sweep's launches are ``launches_autotune``,
+   apart from the main path's.  (c) One lookup
+   batch per format and bucket through a ``MonarchKVIndex`` on the card
+   under the cold and the swept cache: ways, hits and counters equal.
+   (d) ``bench.time_callable`` of an 8192^2 bf16 matmul is at least 0.9
+   of its CUDA-event time (``_block`` synchronised), and ``emit_json``'s
+   envelope read back names the card, its power limit, ``h100-sxm`` and
+   the swept cache's fingerprint.  (e) Phase 3e's counted zamba2-2.7b
+   step (``roofline.jaxpr_cost.step_flops``) beside ``model_flops`` and
+   the median step time.
 
 Every path's launch counts are zeroed just before it and read just after.
-The lines before the last are the phase reports, one JSON object with
-every kernel's numbers and the card's ``nvidia-smi`` name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
+The lines before the last are the phase reports, then three JSON
+objects (every phase's report, the tooling's, every kernel's numbers)
+and the card's ``nvidia-smi`` name and power limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -158,7 +177,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
 RTOL, ATOL = 1e-2, 5e-2            # the reference's non-exact bf16 bound
 # Resume at full depth (48 layers of random bf16 weights) is held to fixed
@@ -174,6 +192,14 @@ SERVE_ARGV = ["--arch", "yi-9b", "--requests", "8", "--batch", "2",
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def h100():
+    """The H100 SXM roofline profile (``repro_torch.roofline.analysis``):
+    ``hbm_bw`` (3.35 TB/s of HBM3) and ``peak_flops`` (989 TFLOP/s dense
+    bf16) bound every kernel, decode and training time below."""
+    from repro_torch.roofline.analysis import MACHINES
+    return MACHINES["h100-sxm"]
 
 
 def nvidia_smi() -> str:
@@ -278,7 +304,8 @@ def search_case(np, torch, rng, n_sets, r, c, n_q, *, packed,
         valid[sets[i], w] = 1
     if empty_every:
         valid[::empty_every] = 0
-    block_q = ops._pick_block_q(n_q, None)
+    block_q = ops._pick_block_q(n_q, None, "packed8" if packed else "int8",
+                                torch.device("cuda"))
     keys, masks, block_sets, live, _ = ops.pack_multiset_batch(
         bits, sets, n_sets, block_q)
     padded_q = keys.shape[0]
@@ -433,7 +460,7 @@ def time_search_kernel(np, torch, timer) -> list[dict]:
             plain = lambda: xam_search_multiset_plain(*operands, block_q=bq)
             call_ms, plain_call_ms = timer.call_ms(kern), timer.call_ms(plain)
             ms, plain_ms = timer.graph_ms(kern), timer.graph_ms(plain)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_bytes = n_bytes / h100().hbm_bw * 1e3
             t_ops = n_ops / INT8_OPS_PER_S * 1e3
             row = {"shape": name, "n_sets": n_sets, "set_ways": 512,
                    "key_bits": 32, "queries": n_q,
@@ -994,9 +1021,9 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
         "edge_server_ms": [a["server_ms"] for a in answers],
         "init_s": init_s, "drain_s": drain_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_bound_ms": weight_bytes / h100().hbm_bw * 1e3,
         "decode_read_gb": read_bytes / 1e9,
-        "decode_read_bound_ms": read_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_read_bound_ms": read_bytes / h100().hbm_bw * 1e3,
     })
     q2.close()
     log("edge stage times (" + smi + "): " + ", ".join(
@@ -1585,7 +1612,6 @@ def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
 # equivalence, zamba2-2.7b at full size through the launcher, the example.
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor rate
 TRAIN_B, TRAIN_S = 2, 64
 #: (arch, layers, microbatches) of the card-vs-CPU train steps
 TRAIN_STEPS = (("yi-9b", 2, 1), ("yi-9b", 2, 2), ("zamba2-2.7b", 6, 1),
@@ -1769,7 +1795,7 @@ def zamba_train_check(np, torch) -> dict:
                              f"history {history}")
     step_s = statistics.median(h["seconds"] for h in history[1:])
     tokens = 2 * 512
-    bound_s = 6 * n_params * tokens / BF16_FLOPS_PER_S
+    bound_s = 6 * n_params * tokens / h100().peak_flops
     out = {"arch": "zamba2-2.7b", "params": n_params, "batch": 2,
            "seq": 512, "steps": steps, "wall_s": wall,
            "first_step_s": history[0]["seconds"], "median_step_s": step_s,
@@ -1785,8 +1811,41 @@ def zamba_train_check(np, torch) -> dict:
         f"{peak / 1e9:.2f} GB, {out['model_flop_share']:.4f} of the "
         f"{bound_s * 1e3:.1f} ms model-FLOP bound; losses "
         f"{[round(x, 4) for x in out['losses']]}")
+    out.update(counted_step(torch, state))
     del state
     return out
+
+
+def counted_step(torch, state) -> dict:
+    """One more step of the run above (step 6, the launcher's optimizer
+    and data settings) under ``roofline.jaxpr_cost.step_flops``: the
+    FLOPs the card ran, beside ``roofline.analysis.model_flops`` for
+    2 x 512 tokens.  Phase 8 reports them."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.roofline import analysis, jaxpr_cost
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step
+
+    argv = dict(zip(ZAMBA_TRAIN_ARGV[::2], ZAMBA_TRAIN_ARGV[1::2]))
+    b, s = int(argv["--batch"]), int(argv["--seq"])
+    cfg = get_arch(argv["--arch"])
+    step_fn = step.make_train_step(cfg, opt.OptConfig(
+        peak_lr=3e-4, total_steps=max(int(argv["--steps"]), 100)))
+    batch = pipeline.batch_at(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b),
+        int(argv["--steps"]))
+    t0 = time.perf_counter()
+    flops = jaxpr_cost.step_flops(step_fn, state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    model = analysis.model_flops(cfg, ShapeConfig("zamba2_2x512", s, b,
+                                                  "train"), 1)
+    if not flops > 0:
+        raise AssertionError(f"counted step FLOPs {flops}")
+    return {"step_flops": flops, "model_flops": model,
+            "step_over_model_flops": flops / model,
+            "counted_step_s": counted_s}
 
 
 def example_check(np, torch, tmp: str) -> dict:
@@ -1929,7 +1988,7 @@ def timed_row(timer, name, kern, plain, n_bytes, n_ops, reps,
     else:
         plain_call_ms = timer.call_ms(plain)
         plain_ms = timer.graph_ms(plain, reps=reps)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / h100().hbm_bw * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
     row = {"shape": name, **extra, "ms": ms, "plain_ms": plain_ms,
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -2152,7 +2211,7 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
                 n_bytes, n_ops,
                 reps=5 if n_q > 8192 else 20,
                 log2_slots=log2_n, window=window, queries=n_q,
-                sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3))
+                sector_bound_ms=sector_bytes / h100().hbm_bw * 1e3))
             del ops_
     n_cases += hop_edge_cases(torch)
     log(f"hopscotch kernel == plain version on {n_cases} cases (H = 1..256, "
@@ -2909,6 +2968,272 @@ def simulator_phase(torch) -> dict:
             "fig9": fig9, "fig11": fig11}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the tooling — machine profile, multi-set autotuning, the bench
+# harness and its envelope, the FLOP count of a train step.
+# ---------------------------------------------------------------------------
+
+PLANTED_EVERY = 3                  # every 3rd sweep query gets a stored hit
+HARNESS_N = 8192                   # bf16 matmul timed through time_callable
+
+
+def planted(np, torch, operands, slot, block_q: int, packed: bool):
+    """The sweep's operands with every PLANTED_EVERY-th query's key stored
+    in a valid way of its set (way chosen per query from a fixed seed, in
+    query order), so the answers carry hits.  The planes come out the
+    same whatever ``block_q`` packed the batch."""
+    from repro_torch.kernels.common import pack_bits_np
+
+    keys, masks, planes, valid, block_sets, live = (
+        t.cpu().numpy().copy() for t in operands)
+    c = valid.shape[1]
+    ways = np.random.default_rng(1).integers(0, c, len(slot))
+    for i in range(0, len(slot), PLANTED_EVERY):
+        row = slot[i]
+        s = block_sets[row // block_q]
+        col = keys[row][:, None]
+        planes[s, :, ways[i]] = (pack_bits_np(col, axis=0)[:, 0] if packed
+                                 else col[:, 0])
+        valid[s, ways[i]] = 1
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        keys, masks, planes, valid, block_sets, live))
+
+
+def sweep_check(np, torch, timer, cache_path) -> dict:
+    """``autotune(out_path=cache_path, device="cuda")``; then, for every
+    plane format, bucket, shape of the bucket and candidate, the answers
+    on the sweep's inputs and on the same inputs with planted hits must
+    equal the cold width's and the plain version's bit for bit; each
+    candidate's cold-L2 device time (``graph_ms``) beside the sweep's own
+    warm-L2 device times, and the width each family chose beside the
+    committed file's."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
+
+    committed = json.loads(autotune.DEFAULT_CACHE_PATH.read_text())
+    before = xam.LAUNCH_COUNT
+    t0 = time.perf_counter()
+    payload = autotune.autotune(cache_path, device="cuda")
+    sweep_s = time.perf_counter() - t0
+    launches = xam.LAUNCH_COUNT - before
+    rows, chosen, hits = [], {}, 0
+    for fmt in ("int8", "packed8"):
+        for bucket, shapes in autotune.BUCKET_SHAPES.items():
+            key = f"xam_multiset/{payload['backend']}/{fmt}/{bucket}"
+            fam = payload["families"][key]
+            cold_bq = fam["cold_block_q"]
+            chosen[f"{fmt}/{bucket}"] = {
+                "block_q": fam["block_q"], "cold_block_q": cold_bq,
+                "committed_block_q": committed["families"].get(
+                    key, {}).get("block_q")}
+            for si, (n_sets, n_q) in enumerate(shapes):
+                answers = {}
+                for bq in sorted(autotune.BLOCK_Q_CANDIDATES,
+                                 key=lambda b: b != cold_bq):  # cold first
+                    ops_, slot = autotune.multiset_workload(
+                        n_sets, n_q, bq, fmt, "cuda")
+                    for kind, args in (("sweep", ops_), ("planted", planted(
+                            np, torch, ops_, slot, bq, fmt == "packed8"))):
+                        got = xam.xam_search_multiset_device(*args,
+                                                             block_q=bq)
+                        plain = xam_search_multiset_plain(*args, block_q=bq)
+                        assert_equal(torch, got, plain,
+                                     f"sweep {fmt} Q={n_q} block_q {bq} "
+                                     f"{kind}")
+                        ans = got.cpu().numpy()[slot]
+                        answers.setdefault(kind, ans)
+                        if not np.array_equal(ans, answers[kind]):
+                            raise AssertionError(
+                                f"sweep {fmt} Q={n_q} {kind}: block_q {bq} "
+                                f"answers differ from the cold width "
+                                f"{cold_bq}")
+                        if kind == "planted" and bq == cold_bq:
+                            hits += int((ans >= 0).sum())
+                    cold_l2_us = timer.graph_ms(
+                        lambda: xam.xam_search_multiset_device(
+                            *ops_, block_q=bq)) * 1e3
+                    t = fam["swept"][str(bq)]
+                    rows.append([fmt, n_sets, n_q, bq, t["q1_us"][si],
+                                 t["median_us"][si], t["q3_us"][si],
+                                 round(cold_l2_us, 3)])
+                    log(f"sweep {fmt}/{bucket} ({n_sets} sets, Q={n_q}) "
+                        f"block_q {bq:3d}: device {t['median_us'][si]:7.3f} "
+                        f"us ({t['q1_us'][si]:.3f}-{t['q3_us'][si]:.3f}), "
+                        f"cold L2 {cold_l2_us:7.3f} us"
+                        f"{'  <- chosen' if bq == fam['block_q'] else ''}"
+                        f"{'  (cold)' if bq == cold_bq else ''}")
+    if hits == 0:
+        raise AssertionError("the planted sweep batches found no hit")
+    log(f"phase 8: sweep wrote {cache_path.name} in {sweep_s:.2f} s "
+        f"({launches} launches); chosen {chosen}; every candidate's answers "
+        f"equal the cold width's and the plain version's ({hits} planted "
+        f"hits)")
+    return {"sweep_s": sweep_s, "launches_autotune": launches,
+            "backend": payload["backend"], "chosen": chosen,
+            "candidates": {"columns": [
+                "plane_format", "sets", "queries", "block_q",
+                "q1_us", "median_us", "q3_us", "cold_l2_us"],
+                "rows": rows}, "planted_hits": hits}
+
+
+#: Fingerprints per warm-cache lookup batch: the serve launcher's batch
+#: and ``KVIndexConfig``'s default, one in each bucket.
+WARM_FPS = {"narrow": 96, "wide": 256}
+
+
+def warm_lookup_check(np, torch, cache_path) -> dict:
+    """One lookup batch per plane format and bucket through a
+    ``MonarchKVIndex`` (the serving geometry, ``KVIndexConfig``'s
+    defaults) on the card, under the cold cache and under the swept one:
+    every way index and every counter equal; the widths each used."""
+    import os
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.serve.kv_index import (CHUNK_TOKENS, KVIndexConfig,
+                                            MonarchKVIndex)
+
+    real_search = xam.xam_search_multiset
+    real_device = xam.xam_search_multiset_device
+    seen: dict = {}
+
+    def search(*a, **k):
+        ways = real_search(*a, **k)
+        seen["ways"] = ways.copy()
+        return ways
+
+    def device(*a, **k):
+        seen["block_q"] = k["block_q"]
+        return real_device(*a, **k)
+
+    def run(fmt: str, n_fps: int, cache: str) -> dict:
+        os.environ[autotune.CACHE_ENV] = cache
+        autotune.reset_cache()
+        idx = MonarchKVIndex(KVIndexConfig(plane_format=fmt,
+                                           admit_after_reads=0),
+                             device="cuda")
+        rng = np.random.default_rng(7)
+        toks = rng.integers(1, 60_000, (8, n_fps // 8 * CHUNK_TOKENS)
+                            ).astype(np.int32)
+        idx.admit_fps(np.unique(idx.fingerprints(toks[::2]).reshape(-1)))
+        hit = idx.lookup(toks)
+        return {"ways": seen["ways"], "hit": hit, "block_q": seen["block_q"],
+                "stats": dataclasses.asdict(idx.stats)}
+
+    old = os.environ.get(autotune.CACHE_ENV)
+    xam.xam_search_multiset = search
+    xam.xam_search_multiset_device = device
+    out = []
+    try:
+        for fmt in ("int8", "packed8"):
+            for bucket, n_q in WARM_FPS.items():
+                cold = run(fmt, n_q, str(cache_path.with_name("absent")))
+                warm = run(fmt, n_q, str(cache_path))
+                if not (np.array_equal(cold["ways"], warm["ways"])
+                        and np.array_equal(cold["hit"], warm["hit"])
+                        and cold["stats"] == warm["stats"]):
+                    raise AssertionError(
+                        f"warm lookup {fmt}/{bucket}: cold {cold['stats']} "
+                        f"vs warm {warm['stats']}")
+                if not cold["hit"].any() or cold["hit"].all():
+                    raise AssertionError(f"lookup {fmt}/{bucket}: hits "
+                                         f"{int(cold['hit'].sum())}")
+                out.append({"plane_format": fmt, "bucket": bucket,
+                            "n_fps": int(cold["hit"].size),
+                            "cold_block_q": cold["block_q"],
+                            "warm_block_q": warm["block_q"],
+                            "hits": int(cold["hit"].sum()),
+                            "stats": cold["stats"]})
+                log(f"warm lookup {fmt}/{bucket}: {cold['hit'].size} fps, "
+                    f"{int(cold['hit'].sum())} hits, block_q cold "
+                    f"{cold['block_q']} / warm {warm['block_q']}: ways and "
+                    f"counters equal")
+    finally:
+        xam.xam_search_multiset = real_search
+        xam.xam_search_multiset_device = real_device
+        if old is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = old
+        autotune.reset_cache()
+    return out
+
+
+def harness_check(torch, timer, cache_path, tmp: str) -> dict:
+    """``time_callable`` of a bf16 matmul against its CUDA-event time
+    (its median must be at least 0.9 of it: ``_block`` synchronised);
+    then ``emit_json`` into ``tmp`` read back."""
+    import os
+    from repro_torch.bench import emit_json, time_callable
+    from repro_torch.kernels import autotune
+
+    x = torch.randn(HARNESS_N, HARNESS_N, device="cuda",
+                    dtype=torch.bfloat16)
+    t = time_callable(lambda: x @ x, warmup=2, reps=10)
+    event_ms = statistics.median(timer._events_ms(lambda: x @ x)
+                                 for _ in range(10))
+    del x
+    if not t.median_us / 1e3 >= 0.9 * event_ms:
+        raise AssertionError(f"time_callable median {t.median_us} us under "
+                             f"the event time {event_ms} ms: no sync")
+    saved = {k: os.environ.get(k) for k in ("BENCH_OUT_DIR",
+                                             autotune.CACHE_ENV)}
+    os.environ["BENCH_OUT_DIR"] = tmp
+    os.environ[autotune.CACHE_ENV] = str(cache_path)
+    try:
+        path = emit_json("torch_autotune", {"probe": True}, quick=False)
+        doc = json.loads(pathlib.Path(path).read_text())
+        want_fp = autotune.cache_fingerprint()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reset_cache()
+    if not (doc["device"] == "cuda" and doc["machine"] == "h100-sxm"
+            and doc["autotune_cache"] == want_fp and doc["device_name"]
+            and doc["power_limit_w"] > 0 and doc["quick"] is False):
+        raise AssertionError(f"emit_json envelope: {doc}")
+    envelope = {k: v for k, v in doc.items() if k != "probe"}
+    log(f"harness: time_callable median {t.median_us:.1f} us (best "
+        f"{t.best_us:.1f}) of a {HARNESS_N}^2 bf16 matmul whose event time "
+        f"is {event_ms * 1e3:.1f} us; envelope {envelope}")
+    return {"median_us": t.median_us, "best_us": t.best_us,
+            "event_ms": event_ms, "envelope": envelope}
+
+
+def tooling_phase(np, torch, timer, smi: str, training: dict) -> dict:
+    """Phase 8: the machine profile, the sweep, a warm-cache lookup, the
+    harness and its envelope, and phase 3e's counted step."""
+    import shutil
+    import tempfile
+    from repro_torch.roofline.analysis import current_machine
+
+    machine = current_machine()
+    log(f"phase 8: card {smi}; machine profile {machine}")
+    if machine.name != "h100-sxm":
+        raise AssertionError(f"machine profile {machine.name} on {smi}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        cache = pathlib.Path(tmp) / "autotune_cache.json"
+        sweep = sweep_check(np, torch, timer, cache)
+        warm = warm_lookup_check(np, torch, cache)
+        harness = harness_check(torch, timer, cache, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    z = training["zamba2_train"]
+    flops = {k: z[k] for k in ("step_flops", "model_flops",
+                               "step_over_model_flops", "counted_step_s",
+                               "median_step_s")}
+    log(f"phase 8: zamba2-2.7b train step at 2 x 512 counted "
+        f"{z['step_flops']:.6e} FLOPs, model_flops {z['model_flops']:.6e}, "
+        f"ratio {z['step_over_model_flops']:.4f}; phase 3e's median step "
+        f"{z['median_step_s']:.3f} s")
+    return {"machine": machine.name, "card": smi, "sweep": sweep,
+            "warm_lookup": warm, "harness": harness, "flops": flops}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2963,6 +3288,9 @@ def main() -> int:
     simulated = simulator_phase(torch)
     simulated["launches"] = read_counts()
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tooling = tooling_phase(np, torch, timer, smi, training)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     path_launches = {
         "xam_search_multiset": (serve_counts["xam_search_multiset"]
@@ -2992,6 +3320,7 @@ def main() -> int:
         "launches_ssm_edges": {e["arch"]: e["launches"]
                                for e in ssm["edges"]},
         "launches_per_request_batch": served["launches"] / served["batches"],
+        "launches_autotune": tooling["sweep"]["launches_autotune"],
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3024,7 +3353,9 @@ def main() -> int:
         if name == "hopscotch_lookup":
             kernels[-1]["floor_ms"] = slice2["xam_search"]["floor_ms"]
             kernels[-1]["sector_bound_ms"] = shapes[row]["sector_bound_ms"]
-    print(json.dumps({"kernels": kernels, "builds": builds,
+    # The report first; the tooling and kernels lines last, where the end
+    # of the output keeps them.
+    print(json.dumps({"builds": builds,
                       "serve": served["times"],
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
@@ -3033,6 +3364,8 @@ def main() -> int:
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "card": smi}), flush=True)
+    print(json.dumps({"tooling": tooling, "card": smi}), flush=True)
+    print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

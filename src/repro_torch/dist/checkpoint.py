@@ -63,6 +63,22 @@ def _rank() -> int:
     return 0
 
 
+def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
+    """numpy has no bfloat16: a bf16 leaf is written as its raw 2-byte
+    bits, a ``V2`` array, which is how the reference's files hold one."""
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy().view("V2")
+    return leaf.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A loaded leaf as a tensor: 2-byte raw bits (``V2``, either
+    package's bf16 leaf) are read back as bf16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def save(root: str, step: int, state, keep_last: int | None = None,
          process_index: int | None = None) -> str:
     """Publish ``state`` (a dict tree of tensors or arrays) at ``step``;
@@ -83,7 +99,7 @@ def save(root: str, step: int, state, keep_last: int | None = None,
     leaves = [leaf for _, leaf in tree_paths(state)]
     for i, leaf in enumerate(leaves):
         if torch.is_tensor(leaf):
-            leaf = leaf.detach().cpu().numpy()
+            leaf = _to_numpy(leaf.detach().cpu())
         with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
             np.save(f, np.asarray(leaf))
             f.flush()
@@ -122,7 +138,7 @@ def restore(root: str, step: int, template, device=None):
 
     def load(path, want):
         a = np.load(os.path.join(d, f"leaf_{index[path]}.npy"))
-        got = torch.from_numpy(a)
+        got = _from_numpy(a)
         if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
             raise ValueError(
                 f"{d} leaf {index[path]} ({'/'.join(path)}): {got.dtype}"

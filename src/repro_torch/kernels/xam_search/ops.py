@@ -22,7 +22,9 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import bucket_pow2, resolve_plane_format
+from repro_torch.kernels import autotune
+from repro_torch.kernels.common import (bucket_pow2, plane_format_of,
+                                        resolve_plane_format)
 from repro_torch.kernels.xam_search import kernel
 from repro_torch.kernels.xam_search.ref import (
     first_match, xam_search_multiset_plain, xam_search_plain)
@@ -52,17 +54,20 @@ def count_launch(name: str) -> None:
         globals()[name] += 1
 
 
-#: Query-block width: the reference's cold autotune fallback (16 below
-#: 256 queries, 64 at or above).  The answer never depends on it.
-MULTISET_BLOCK_Q = 16
-WIDE_BLOCK_AT = 256
-WIDE_BLOCK_Q = 64
+#: Query-block width: ``kernels/autotune.py`` answers with the cached
+#: winner for the planes' card, plane format and shape bucket, else the
+#: cold constants (16 below 256 queries, 64 at or above).  The answer
+#: never depends on it.
+MULTISET_BLOCK_Q = autotune.MULTISET_BLOCK_Q
+WIDE_BLOCK_AT = autotune.WIDE_BLOCK_AT
+WIDE_BLOCK_Q = autotune.WIDE_BLOCK_Q
 
 
-def _pick_block_q(n_queries: int, block_q: int | None) -> int:
+def _pick_block_q(n_queries: int, block_q: int | None, plane_format: str,
+                  device: torch.device) -> int:
     if block_q is not None:
         return block_q
-    return WIDE_BLOCK_Q if n_queries >= WIDE_BLOCK_AT else MULTISET_BLOCK_Q
+    return autotune.multiset_block_q(n_queries, plane_format, device)
 
 
 def _check_scoring(scoring: str) -> None:
@@ -319,7 +324,8 @@ def _multiset_dispatch(key_bits, set_ids, planes, valid, *, block_q,
     n_sets = planes.shape[0]
     if set_ids.size and (set_ids.min() < 0 or set_ids.max() >= n_sets):
         raise ValueError(f"set ids must lie in [0, {n_sets})")
-    block_q = _pick_block_q(len(set_ids), block_q)
+    block_q = _pick_block_q(len(set_ids), block_q, plane_format_of(planes),
+                            planes.device)
     keys, masks, block_sets, live, slot = pack_multiset_batch(
         key_bits, set_ids, n_sets, block_q)
     put = lambda x: torch.from_numpy(x).to(planes.device)

@@ -183,6 +183,82 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
         np.testing.assert_array_equal(a, b, err_msg="/".join(p))
 
 
+def _bf16_state(seed: int = 0):
+    """A tree with a bf16 leaf (serving parameters are bf16) beside
+    float32 and int32 leaves, as numpy: the bf16 leaf's bits as int16."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((5, 7)).astype(np.float32)
+    return {"params": {"w": np.asarray(jnp.asarray(w, jnp.bfloat16)),
+                       "b": rng.standard_normal(7).astype(np.float32)},
+            "step": np.asarray(3, np.int32)}
+
+
+def _bf16_port(state):
+    return {"params": {"w": torch.from_numpy(
+                           state["params"]["w"].view(np.int16).copy()).view(
+                               torch.bfloat16),
+                       "b": torch.from_numpy(state["params"]["b"])},
+            "step": torch.from_numpy(state["step"])}
+
+
+def _bits(a) -> np.ndarray:
+    """Raw bits of a bf16 leaf (tensor, ml_dtypes array or ``V2``)."""
+    if torch.is_tensor(a):
+        return a.view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_bf16_leaf_restores_in_port(tmp_path, writer):
+    """Queue item 15: a bf16 leaf saved by either package restores in the
+    port as bf16, bit for bit; the file holds its raw 2-byte bits."""
+    state = _bf16_state()
+    template = _bf16_port(state)
+    d = str(tmp_path / "ckpt")
+    if writer == "port":
+        checkpoint.save(d, 4, template, process_index=0)
+    else:
+        j_ckpt.save(d, 4, jax.tree.map(jnp.asarray, state), process_index=0)
+    step, restored = checkpoint.restore_latest(d, template, device="cpu")
+    assert step == 4
+    w = restored["params"]["w"]
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == (5, 7)
+    np.testing.assert_array_equal(_bits(w), _bits(state["params"]["w"]))
+    np.testing.assert_array_equal(restored["params"]["b"].numpy(),
+                                  state["params"]["b"])
+    assert int(restored["step"]) == 3
+    # the leaf file: 2-byte void records holding the bf16 bits
+    i = [p for p, _ in tree_paths(template)].index(("params", "w"))
+    raw = np.load(os.path.join(d, "step_4", f"leaf_{i}.npy"))
+    assert raw.dtype.kind == "V" and raw.dtype.itemsize == 2
+    np.testing.assert_array_equal(raw.view(np.int16),
+                                  _bits(state["params"]["w"]))
+
+
+def test_bf16_leaf_from_port_restores_in_reference(tmp_path):
+    """The reference reads the port's bf16 leaf as the same 2-byte bits it
+    writes itself."""
+    state = _bf16_state(seed=1)
+    d = str(tmp_path / "ckpt")
+    checkpoint.save(d, 2, _bf16_port(state), process_index=0)
+    step, restored = j_ckpt.restore_latest(d, jax.tree.map(jnp.asarray, state))
+    assert step == 2
+    w = np.asarray(restored["params"]["w"])
+    assert w.dtype.itemsize == 2 and w.shape == (5, 7)
+    np.testing.assert_array_equal(_bits(w), _bits(state["params"]["w"]))
+    np.testing.assert_array_equal(np.asarray(restored["params"]["b"]),
+                                  state["params"]["b"])
+
+
+def test_bf16_leaf_into_a_float_template_is_rejected(tmp_path):
+    d = str(tmp_path / "ckpt")
+    template = _bf16_port(_bf16_state())
+    checkpoint.save(d, 1, template, process_index=0)
+    template["params"]["w"] = template["params"]["w"].float()
+    with pytest.raises(ValueError, match="params/w"):
+        checkpoint.restore(d, 1, template)
+
+
 # ---------------------------------------------------------------------------
 # Elastic rescaling.
 # ---------------------------------------------------------------------------

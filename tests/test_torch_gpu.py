@@ -28,7 +28,8 @@ def _operands(rng, n_sets, r, c, n_q, packed):
     bits = rng.integers(0, 2, (n_q, r)).astype(np.int8)
     planes[sets[::3], :, 11] = bits[::3]
     valid[sets[::3], 11] = 1
-    block_q = ops._pick_block_q(n_q, None)
+    block_q = ops._pick_block_q(n_q, None, "packed8" if packed else "int8",
+                                torch.device("cuda"))
     keys, masks, bs, live, _ = ops.pack_multiset_batch(bits, sets, n_sets,
                                                        block_q)
     if packed:

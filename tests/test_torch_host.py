@@ -222,8 +222,10 @@ def test_bucket_pow2(n, lo):
 def test_block_q_cold_fallback():
     """The port's block width is the reference's cold autotune fallback."""
     for n in (1, 255, 256, 4096):
-        assert t_ops._pick_block_q(n, None) == (64 if n >= 256 else 16)
-    assert t_ops._pick_block_q(5, 32) == 32
+        for fmt in ("int8", "packed8"):
+            assert t_ops._pick_block_q(n, None, fmt, torch.device("cpu")) \
+                == (64 if n >= 256 else 16)
+    assert t_ops._pick_block_q(5, 32, "int8", torch.device("cpu")) == 32
 
 
 def test_timing_math():
