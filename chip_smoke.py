@@ -159,6 +159,21 @@ code 1) on failure:
    the swept cache's fingerprint.  (e) Phase 3e's counted zamba2-2.7b
    step (``roofline.jaxpr_cost.step_flops``) beside ``model_flops`` and
    the median step time.
+9. The launch layer and the examples.  (a) ``launch.dryrun.run_cell`` of
+   every cell of ``configs.all_cells()`` on the card's host mesh, the
+   steps run on ``meta`` tensors: one line per cell with its input bytes
+   per device against the card's memory, its counted FLOPs,
+   ``model_flops``, the roofline terms on ``h100-sxm`` and the
+   bottleneck, the counting method and its seconds; a runnable cell that
+   fails to trace raises.  (b) zamba2-2.7b's train step dry-run at phase
+   3e's 2 x 512: its FLOPs equal phase 8's counted step on the card
+   exactly, and its input bytes do not exceed phase 3e's peak.  (c)
+   ``examples/quickstart_torch.py``, ``kv_store_torch.py``,
+   ``string_search_torch.py`` and ``serve_prefix_cache_torch.py`` with
+   ``--device cpu`` and then ``--device cuda``: the same lines but for
+   host times and the route an example names, and the card's run
+   launches each example's kernels (the flat search; the flat search and
+   the hopscotch lookup; the string match; the multi-set search).
 
 Every path's launch counts are zeroed just before it and read just after.
 The lines before the last are the phase reports, then three JSON
@@ -3234,6 +3249,163 @@ def tooling_phase(np, torch, timer, smi: str, training: dict) -> dict:
             "warm_lookup": warm, "harness": harness, "flops": flops}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the launch layer's dry run on the card's host mesh, and the four
+# examples on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+ZAMBA_TRAIN_SHAPE = ("train_512", 512, 2, "train")     # phase 3e's steps
+# argv of each example, and the kernels its run on the card must launch
+EXAMPLES = {
+    "quickstart_torch": ([], ("xam_search",)),
+    "kv_store_torch": ([], ("xam_search", "hopscotch_lookup")),
+    "string_search_torch": (["--mib", "1"], ("string_match",)),
+    "serve_prefix_cache_torch": (["--requests", "5", "--decode-tokens", "2"],
+                                 ("xam_search_multiset",)),
+}
+# host times and the route an example names vary between runs and devices
+_VARYING = r"\d+(\.\d+)? ?m?s\b( \((CUDA kernel on the card|plain version " \
+           r"on the CPU)\))?"
+
+
+def dryrun_cells(torch, out_dir: str) -> list:
+    """(a) ``launch.dryrun.run_cell`` of every cell on the host mesh: one
+    line each; a runnable cell that fails to trace raises."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for cfg, shape, ok, why in configs.all_cells():
+        rec = dryrun.run_cell(cfg.name, shape.name, "host", out_dir)
+        if not ok:
+            log(f"dryrun {cfg.name} x {shape.name}: skipped ({why})")
+            rows.append(rec)
+            continue
+        mem, roof = rec["memory"], rec["roofline"]
+        if rec["n_devices"] != 1 or mem["card_bytes"] != card or \
+                rec["machine"] != "h100-sxm" or not rec["flops"] > 0:
+            raise AssertionError(f"dryrun record {rec}")
+        log(f"dryrun {cfg.name} x {shape.name}: inputs "
+            f"{mem['analytic_input_bytes_per_device'] / 1e9:.2f} GB/device "
+            f"of the card's {card / 1e9:.2f} GB (exceeds: "
+            f"{mem['inputs_exceed_card']}), counted "
+            f"{rec['flops'] / 1e12:.4f} TFLOPs, model_flops "
+            f"{roof['model_flops'] / 1e12:.4f} T, compute "
+            f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
+            f"collective {roof['collective_s']:.4g} s -> "
+            f"{roof['bottleneck']}; {rec['flops_method']}, trace "
+            f"{rec['trace_s']:.2f} s")
+        rows.append({k: rec[k] for k in ("arch", "shape", "runnable",
+                                         "flops", "flops_method",
+                                         "trace_s", "hbm_bytes")}
+                    | {"input_bytes": mem["analytic_input_bytes_per_device"],
+                       "inputs_exceed_card": mem["inputs_exceed_card"],
+                       "model_flops": roof["model_flops"],
+                       "compute_s": roof["compute_s"],
+                       "memory_s": roof["memory_s"],
+                       "bottleneck": roof["bottleneck"]})
+    return rows
+
+
+def dryrun_vs_card(torch, zamba: dict) -> dict:
+    """(b) zamba2-2.7b's train step dry-run at phase 3e's shape: its FLOPs
+    equal phase 8's counted step on the card exactly, and its input bytes
+    do not exceed phase 3e's measured peak."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, shape = get_arch("zamba2-2.7b"), ShapeConfig(*ZAMBA_TRAIN_SHAPE)
+    mesh = make_host_mesh()
+    count = dryrun.count_step(cfg, shape, mesh)
+    _, args, in_specs, _ = dryrun.build_cell(cfg, shape, mesh)
+    inputs = dryrun.analytic_input_bytes_per_device(args, in_specs, mesh)
+    peak = zamba["peak_mem_bytes"]
+    log(f"dryrun zamba2-2.7b train 2 x 512: {count['flops']:.6e} FLOPs "
+        f"({count['flops_method']}) against phase 8's counted step "
+        f"{zamba['step_flops']:.6e} on the card; inputs {inputs / 1e9:.2f} "
+        f"GB against phase 3e's peak {peak / 1e9:.2f} GB (ratio "
+        f"{inputs / peak:.4f})")
+    if count["flops"] != zamba["step_flops"]:
+        raise AssertionError(f"dry-run FLOPs {count['flops']} != the card's "
+                             f"counted {zamba['step_flops']}")
+    if inputs > peak:
+        raise AssertionError(f"dry-run inputs {inputs} B exceed the measured "
+                             f"peak {peak} B")
+    return {"flops": count["flops"], "card_step_flops": zamba["step_flops"],
+            "flops_method": count["flops_method"],
+            "input_bytes": inputs, "peak_mem_bytes": peak,
+            "inputs_over_peak": inputs / peak, "trace_s": count["trace_s"]}
+
+
+def stable_lines(text: str) -> list:
+    """An example's output with host times and the named route masked."""
+    import re
+    return [re.sub(_VARYING, "<varies>", line) for line in text.splitlines()]
+
+
+def run_example(name: str, argv: list) -> str:
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        load_example(name).main(argv)
+    return out.getvalue()
+
+
+def examples_check(torch) -> dict:
+    """(c) Each example with ``--device cpu`` and then ``--device cuda``:
+    the same lines but for times and the route, and on the card the
+    launches of its kernels."""
+    out = {}
+    for name, (argv, kernels) in EXAMPLES.items():
+        cpu = run_example(name, argv + ["--device", "cpu"])
+        zero_counts()
+        t0 = time.perf_counter()
+        card = run_example(name, argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if stable_lines(card) != stable_lines(cpu):
+            raise AssertionError(f"{name} on the card:\n{card}\non the CPU:"
+                                 f"\n{cpu}")
+        if not all(counts[k] > 0 for k in kernels):
+            raise AssertionError(f"{name} launched {counts}, expected "
+                                 f"{kernels}")
+        log(f"example {' '.join([name] + argv)}: card lines equal the CPU's "
+            f"({len(card.splitlines())} lines) in {wall:.2f} s; launches "
+            f"{ {k: counts[k] for k in kernels} }")
+        for line in card.splitlines():
+            log(f"  {name}: {line}")
+        out[name] = {"argv": argv, "wall_s": wall, "launches": counts,
+                     "lines": card.splitlines()}
+    return out
+
+
+def launch_phase(torch, smi: str, training: dict) -> dict:
+    """Phase 9: (a) the dry run of every cell, (b) the dry run against the
+    card's counted step, (c) the four examples."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        t0 = time.perf_counter()
+        cells = dryrun_cells(torch, tmp)
+        cells_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 9 (a): {sum(c['runnable'] for c in cells)} runnable cells "
+        f"dry-run in {cells_s:.1f} s")
+    vs_card = dryrun_vs_card(torch, training["zamba2_train"])
+    t0 = time.perf_counter()
+    examples = examples_check(torch)
+    log(f"phase 9 (c): four examples in {time.perf_counter() - t0:.1f} s")
+    return {"cells": cells, "cells_s": cells_s, "zamba2_train": vs_card,
+            "examples": examples, "card": smi}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3291,16 +3463,26 @@ def main() -> int:
     t0 = time.perf_counter()
     tooling = tooling_phase(np, torch, timer, smi, training)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launch = launch_phase(torch, smi, training)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    example_launches = {name: sum(e["launches"][name]
+                                  for e in launch["examples"].values())
+                        for name in read_counts()}
 
     path_launches = {
         "xam_search_multiset": (serve_counts["xam_search_multiset"]
                                 + gemma["edge"]["launches"]
                                 + moe["shards"]["launches"]
                                 + moe["edge"]["launches"]
-                                + sum(e["launches"] for e in ssm["edges"])),
-        "hopscotch_lookup": table["point"]["launches"]["hopscotch_lookup"],
-        "string_match": strings["launches"]["string_match"],
-        "xam_search": api["launches"]["xam_search"],
+                                + sum(e["launches"] for e in ssm["edges"])
+                                + example_launches["xam_search_multiset"]),
+        "hopscotch_lookup": (table["point"]["launches"]["hopscotch_lookup"]
+                             + example_launches["hopscotch_lookup"]),
+        "string_match": (strings["launches"]["string_match"]
+                         + example_launches["string_match"]),
+        "xam_search": (api["launches"]["xam_search"]
+                       + example_launches["xam_search"]),
     }
     for name, n in path_launches.items():
         if n <= 0:
@@ -3321,6 +3503,7 @@ def main() -> int:
                                for e in ssm["edges"]},
         "launches_per_request_batch": served["launches"] / served["batches"],
         "launches_autotune": tooling["sweep"]["launches_autotune"],
+        "launches_examples": example_launches["xam_search_multiset"],
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3343,6 +3526,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": replaces, "launches": path_launches[name],
+            "launches_examples": example_launches[name],
             "max_abs_err": slice2[name]["max_abs_err"],
             "ms": shapes[row]["ms"], "plain_ms": shapes[row]["plain_ms"],
             "bound_ms": shapes[row]["bound_ms"],
@@ -3363,7 +3547,7 @@ def main() -> int:
                       "training": training,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
-                      "card": smi}), flush=True)
+                      "launch_layer": launch, "card": smi}), flush=True)
     print(json.dumps({"tooling": tooling, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(smi, flush=True)

@@ -14,12 +14,14 @@ import torch
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises ``RuntimeError`` for a CUDA
     device when no card is visible (pass ``device="cpu"`` to run on the
-    host explicitly)."""
+    host explicitly).  ``"meta"`` (shapes and dtypes, no storage: the
+    dry run's ``launch/specs.py``) is accepted when the caller names it;
+    it is never a default."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} but no CUDA device is visible; pass "
             "device='cpu' explicitly to run the port on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev

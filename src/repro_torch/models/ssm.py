@@ -196,8 +196,11 @@ def _selective_scan(dt, xh, b_in, c_in, a, chunk: int):
         bc = b_in[:, lo:hi].transpose(0, 1).float()
         dbx = (dtc * xc)[..., None] * bc[:, :, None, :]
         hs = []
-        for t in range(hi - lo):          # out of place: autograd saves h
-            h = torch.addcmul(dbx[t], h, da[t])
+        # out of place: autograd saves h; unbind splits each chunk once
+        # (one view op, and one stack in the backward pass, where
+        # indexing would add a select and its backward per step)
+        for dbx_t, da_t in zip(dbx.unbind(0), da.unbind(0)):
+            h = torch.addcmul(dbx_t, h, da_t)
             hs.append(h)
         cc = c_in[:, lo:hi].transpose(0, 1).float()
         y[:, lo:hi] = torch.einsum("lbdn,lbn->bld", torch.stack(hs), cc)

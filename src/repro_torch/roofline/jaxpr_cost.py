@@ -1,5 +1,6 @@
-"""FLOPs of one eager step (port of ``repro/roofline/jaxpr_cost.py``; the
-file keeps the reference's name so a reader finds the counterpart).
+"""FLOPs and bytes of one eager step (port of
+``repro/roofline/jaxpr_cost.py``; the file keeps the reference's name so a
+reader finds the counterpart).
 
 The reference walks the jaxpr, because XLA's cost analysis counts a
 scan's body once and its models scan over layer groups, KV chunks and
@@ -15,13 +16,119 @@ batched matmuls and convolutions (2 x M x N x K, as the reference's
   site.  A non-reentrant checkpoint stops recomputing once the backward
   has every tensor it saved, so a body's last ops may not rerun: what is
   counted is what ran.
+* The step may run on ``meta`` tensors (``launch/specs.py``): the counts
+  depend only on shapes, so they equal the counts of the same step on
+  the card or the CPU, and nothing is allocated.
+
+:func:`step_bytes` is the counterpart of XLA's ``"bytes accessed"``: the
+bytes of every aten op's tensor operands and outputs, views and metadata
+ops skipped.  It is an unfused count (each op's intermediates go to
+memory and back), so it is higher than XLA's count of a fused program.
+
+:class:`MetaShapeCache` makes a meta run fast enough to count a full
+configuration: the meta device computes each op's output shape in
+Python (tens of microseconds an op), and a step repeats the same few
+ops thousands of times (a scan's per-token update, a chunk loop).
 
 The reference's jaxpr walker (``jaxpr_flops`` and its per-primitive
 rules) has no counterpart: there is no jaxpr to walk.
 """
 from __future__ import annotations
 
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 from torch.utils.flop_counter import FlopCounterMode
+
+_aten = torch.ops.aten
+# Ops that touch no element: allocation and metadata.
+_NO_DATA = {_aten.empty.memory_format, _aten.empty_strided.default,
+            _aten.empty_like.default, _aten.detach.default,
+            _aten.lift_fresh.default, _aten._unsafe_view.default,
+            _aten.alias.default, _aten.is_same_size.default}
+
+
+class ByteCounterMode(TorchDispatchMode):
+    """Sums the bytes of each aten op's tensor arguments and outputs
+    (``numel x element size``; an in-place op's operand is read and
+    written, so it counts twice).  Views and :data:`_NO_DATA` ops are
+    skipped."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and func not in _NO_DATA:
+            for t in tree_leaves((args, kwargs, out)):
+                if isinstance(t, torch.Tensor):
+                    self.total += t.numel() * t.element_size()
+        return out
+
+
+def _meta_key(x):
+    """A hashable key of an op argument's metadata; TypeError for an
+    argument the cache does not key on (a tensor with values, a
+    generator, a symbolic size)."""
+    if isinstance(x, torch.Tensor):
+        if not x.is_meta:
+            raise TypeError(x.device)
+        return (x.dtype, tuple(x.shape), x.stride())
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_meta_key(v) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((k, _meta_key(v)) for k, v in x.items()))
+    if x is None or isinstance(x, (bool, int, float, str, torch.dtype,
+                                   torch.device, torch.layout,
+                                   torch.memory_format)):
+        return (type(x), x)
+    raise TypeError(type(x))
+
+
+class MetaShapeCache(TorchDispatchMode):
+    """Memoises the output shapes, strides and dtypes of functional aten
+    ops on ``meta`` tensors, keyed on the op and its arguments' metadata
+    (a meta kernel reads nothing else), and answers a repeated op with
+    fresh meta tensors of those shapes.  Views, in-place and aliasing ops,
+    ops with a tensor argument off the meta device, and any op whose
+    outputs are not all meta tensors (a factory on the CPU) run as they
+    are.  Enter it before the counters,
+    so that they see every op and it answers below them."""
+
+    def __init__(self):
+        super().__init__()
+        self._outputs = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        schema = func._schema
+        if func.is_view or schema.is_mutable or any(
+                r.alias_info is not None for r in schema.returns):
+            return func(*args, **kwargs)
+        try:
+            key = (func, _meta_key(args), _meta_key(kwargs))
+        except TypeError:
+            return func(*args, **kwargs)
+        hit = self._outputs.get(key)
+        if hit is not None:
+            metas, spec = hit
+            return tree_unflatten(
+                [torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+                 for shape, stride, dtype in metas], spec)
+        out = func(*args, **kwargs)
+        leaves, spec = tree_flatten(out)
+        if all(isinstance(t, torch.Tensor) and t.is_meta for t in leaves):
+            self._outputs[key] = ([(tuple(t.shape), t.stride(), t.dtype)
+                                   for t in leaves], spec)
+        return out
+
+
+def step_cost(fn, *args) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``fn(*args)``, run once under both counters."""
+    with FlopCounterMode(display=False) as flops, ByteCounterMode() as nbytes:
+        fn(*args)
+    return float(flops.get_total_flops()), float(nbytes.total)
 
 
 def step_flops(fn, *args) -> float:
@@ -29,3 +136,11 @@ def step_flops(fn, *args) -> float:
     with FlopCounterMode(display=False) as counter:
         fn(*args)
     return float(counter.get_total_flops())
+
+
+def step_bytes(fn, *args) -> float:
+    """Bytes the aten ops of ``fn(*args)`` read and write, run once
+    (:class:`ByteCounterMode`)."""
+    with ByteCounterMode() as counter:
+        fn(*args)
+    return float(counter.total)

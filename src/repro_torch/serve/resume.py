@@ -93,6 +93,9 @@ class PrefixResumeEngine:
                 "PrefixResumeEngine needs an index with an attached "
                 "KVSlabStore (MonarchKVIndex(..., slab_store=...))")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" is the current card, where params made for "cuda" live
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if params["final_ln"].device != self.device:
             raise ValueError(f"params live on {params['final_ln'].device}, "
                              f"engine device is {self.device}")

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.models import transformer
 from repro_torch.pytree import tree_map, tree_paths
 from repro_torch.train import optimizer as opt
@@ -144,6 +145,15 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = opt.OptConfig(),
         return {"params": params, "opt": new_opt}, dict(metrics, loss=loss)
 
     return train_step
+
+
+def state_specs(state_shapes: dict, mesh) -> dict:
+    """Spec tree for a train state (``dist/sharding.py``): the masters
+    and both moments share the parameter rules; the step is
+    replicated."""
+    p_specs = sharding.param_specs(state_shapes["params"], mesh)
+    return {"params": p_specs,
+            "opt": {"m": p_specs, "v": p_specs, "step": ()}}
 
 
 def _sorted_like(tree):

@@ -188,9 +188,14 @@ def test_launcher_main_on_cpu(capsys):
 _BLOCKED = ("jax", "jaxlib", "repro")
 
 
+PORT_EXAMPLES = ("train_lm_torch", "quickstart_torch", "kv_store_torch",
+                 "string_search_torch", "serve_prefix_cache_torch")
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py"]
+        ROOT / "chip_smoke.py"] + [ROOT / "examples" / f"{name}.py"
+                                   for name in PORT_EXAMPLES]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -225,14 +230,17 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 sys.path.insert(0, "examples")
-import train_lm_torch
+import train_lm_torch, quickstart_torch, kv_store_torch
+import string_search_torch, serve_prefix_cache_torch
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
 assert {{"repro_torch.serve.http_frontend",
          "repro_torch.launch.httpd", "repro_torch.models.moe",
          "repro_torch.train.step", "repro_torch.train.optimizer",
          "repro_torch.launch.train", "repro_torch.dist.checkpoint",
          "repro_torch.dist.compression", "repro_torch.dist.elastic",
-         "repro_torch.dist.straggler"}} <= set(mods)
+         "repro_torch.dist.straggler", "repro_torch.dist.sharding",
+         "repro_torch.launch.mesh", "repro_torch.launch.specs",
+         "repro_torch.launch.dryrun"}} <= set(mods)
 print("imported", len(mods))
 """
 
