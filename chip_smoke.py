@@ -47,11 +47,16 @@ code 1) on failure:
 3c. Logical index shards and MoE.  gemma3-27b is freed first and the
    card's allocated memory must be back to its level before phase 3.
    (a) A seeded admit/re-offer/lookup/rotate schedule through indexes of
-   1, 2 and 4 shards under "auto" and "fanout" on the card, each equal to
-   a one-shard CPU index after every op (planes, counters, wear state,
-   hits, wear report); a lookup is one multi-set launch under "auto" and
-   one per shard holding queries under "fanout"; the schedule installs,
-   evicts, skips and throttles.  (b) One qwen3-moe MoE block at full
+   1, 2 and 4 shards under "auto" and "fanout" on the card, and "auto"
+   indexes partitioned over ("cuda:0",) * 2, ("cuda:0",) * 4 and the
+   mixed ("cuda:0", "cpu", "cuda:0", "cpu"), each equal to a one-shard
+   CPU index after every op (planes, counters, wear state, hits, wear
+   report); a lookup is one multi-set launch under "auto" on one
+   partition, one per shard holding queries under "fanout", and one
+   search with one launch per partition on the partitioned indexes,
+   whose partitions' tensors lie on their devices; the schedule
+   installs, evicts, skips and throttles.  Host-clock medians of a
+   lookup and an admission at 1, 2 and 4 partitions (reported).  (b) One qwen3-moe MoE block at full
    width (128 experts, top-8), card against CPU at S = 96 (capacity 7,
    entries dropped) and S = 1: expert ids equal where the 8th/9th router
    gap exceeds 1e-6, outputs within rtol 1e-2/atol 5e-2 but for at most
@@ -61,7 +66,10 @@ code 1) on failure:
    CPU did (bf16 noise flips routing in later layers).  (c)
    qwen3-moe-30b-a3b at full width and depth (48 layers, 30.53 B bf16
    parameters, 61.06 GB) behind ``launch/httpd.build_frontend`` with
-   ``--n-shards 4``, checked and timed as phase 3b's edge.
+   ``--n-shards 4``, checked and timed as phase 3b's edge; its
+   ``run_request_loop`` replay runs on a fresh index partitioned over
+   ("cuda:0",) * 4: every request's hit and resumed chunks equal the
+   edge's, and the replay's multi-set launches are 4 x its searches.
 3d. The SSM models.  qwen3-moe is freed first and the card's allocated
    memory must be back to its level before phase 3.  (a) One Mamba-1
    block at falcon-mamba-7b's width (d_inner 8192, N 16) and one Mamba-2
@@ -139,7 +147,10 @@ code 1) on failure:
    ``ss_mechanism_ratio`` and ``claims`` of ``BENCH_fig11.json`` must be
    reproduced exactly.  Per family: wall time, µs per step replayed and
    eager (a 64-step window), kernels per step in the captured graph; and
-   the peak device memory.  The path launches none of the four kernels.
+   the peak device memory.  Then the first Fig. 9 family whose lanes
+   split in two runs again through ``simulate_grid(devices=("cuda:0",
+   "cuda:0"))`` (two blocks of lanes, one run each): every result and
+   final state equal to the sweep's.  The path launches none of the four kernels.
 8. The tooling.  (a) ``roofline.analysis.current_machine()`` must be
    ``h100-sxm`` on the card (the bounds above read that profile).  (b)
    ``kernels.autotune.autotune`` sweeps the multi-set search's query-block
@@ -849,7 +860,8 @@ def decode_read_bytes(cfg, params) -> int:
 
 
 def edge_phase(np, torch, smi: str, argv: list, dims: dict,
-               check_tree, resume: bool = True) -> dict:
+               check_tree, resume: bool = True,
+               replay_devices: tuple | None = None) -> dict:
     """The ``--arch`` of ``argv`` at full width and depth (its fields
     must equal ``dims``; bf16, seeded random weights on the card, their
     tree checked by ``check_tree``) booted behind
@@ -860,7 +872,10 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     same 8 requests are then replayed through ``run_request_loop`` on a
     fresh index of the same shards over the same parameters (greedy
     tokens equal under the margin rule), and the per-stage times are
-    taken on that engine.  ``resume=False`` is the path of a recurrent
+    taken on that engine.  With ``replay_devices`` that index is
+    partitioned over them: every request's hit and resumed chunks must
+    equal the edge's, and the replay's multi-set launches must be one
+    per partition per search.  ``resume=False`` is the path of a recurrent
     model: the edge must report resume off, the index (``"block"``
     fingerprints, no slab store) must hit and no chunk may resume; the
     replay and its times run the plain prefill and decode."""
@@ -967,7 +982,10 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
                            fingerprint="prefix" if resume else "block",
                            admit_after_reads=0, n_shards=args.n_shards)
     idx2 = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore() if resume
-                          else None, device="cuda")
+                          else None, device="cuda", devices=replay_devices)
+    n_parts = 1 if replay_devices is None else len(replay_devices)
+    if idx2.n_parts != n_parts:
+        raise AssertionError(f"replay index in {idx2.n_parts} partitions")
     q2 = AdmitQueue(idx2)
     max_seq = args.prompt_len + args.decode_tokens
     prefill_fn, plain_decode, eng = build_model_fns(
@@ -993,9 +1011,23 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
         gaps.append(np.stack(g, 1))
         return np.stack(out, 1).astype(np.int32)
 
+    zero_counts()
     recs = run_request_loop(q2, batches, prefill_fn=prefill_fn,
                             decode_fn=decode_fn)
     q2.flush()
+    replay_launches = read_counts()["xam_search_multiset"]
+    replay_searches = idx2.stats.searches
+    if replay_launches != n_parts * replay_searches:
+        raise AssertionError(f"replay: {replay_launches} multi-set launches "
+                             f"for {replay_searches} searches over "
+                             f"{n_parts} partitions")
+    if replay_devices is not None:
+        got = [(r.hit_chunks, r.resumed_chunks) for r in recs]
+        want = [(a["hit_chunks"], a["resumed_chunks"]) for a in answers]
+        if got != want:
+            raise AssertionError(f"replay over {n_parts} partitions: hit "
+                                 f"and resumed chunks {got} != the edge's "
+                                 f"{want}")
     for i, (rec, tk) in enumerate(zip(recs, edge_tokens)):
         if not greedy_margin_agree(tk, rec.decoded, gaps[i]):
             raise AssertionError(f"request {i}: the edge's greedy tokens "
@@ -1045,6 +1077,9 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
         f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float)))
     return {"arch": cfg.name, "n_shards": idx.n_shards, "resume": resume,
             "launches": launches["xam_search_multiset"],
+            "replay_partitions": n_parts,
+            "replay_launches": replay_launches,
+            "replay_searches": replay_searches,
             "searches": s.searches, "requests": EDGE_REQUESTS,
             "hit_rate": idx.hit_rate, "resumed_chunks": resumed,
             "params_b": n_params / 1e9, "weight_gb": weight_bytes / 1e9,
@@ -1078,6 +1113,12 @@ def gemma_phase(np, torch, smi: str, base_bytes: int) -> dict:
 SHARD_STEPS = 24                   # randomized admit/lookup/rotate ops
 SHARD_CFG = dict(n_sets=8, set_ways=4, admit_after_reads=1, m_writes=1,
                  window_ops=64, rotate_every=1 << 30)
+# Partitioned "auto" indexes: several partitions on the one card (the
+# counterpart of the reference's forced host devices), and a mixed list
+# whose boundary exchange moves sets between the card and the CPU.
+PART_DEVICES = {"2 x cuda:0": ("cuda:0",) * 2, "4 x cuda:0": ("cuda:0",) * 4,
+                "mixed": ("cuda:0", "cpu", "cuda:0", "cpu")}
+REPLAY_DEVICES = ("cuda:0",) * 4   # phase 3c (c)'s run_request_loop index
 ROUTE_MARGIN = 1e-6                # k-th vs (k+1)-th router probability
 # The full-width MoE block, card against CPU, is held to RTOL/ATOL with
 # fixed ceilings on what falls outside, as the deep resume check is: its
@@ -1132,13 +1173,18 @@ def same_state(np, a, b) -> bool:
 
 
 def shard_check(np, torch) -> dict:
-    """(a) Logical shards on the card: one seeded admit/re-offer/lookup/
-    rotate schedule through indexes of 1, 2 and 4 shards under "auto"
-    and "fanout", all on the card, beside a one-shard index on the CPU.
-    After every op every card index's global state equals the CPU's; a
-    lookup is one multi-set launch under "auto" and one per shard
-    holding queries under "fanout".  The schedule must install, evict,
-    skip (no-allocate) and throttle."""
+    """(a) Logical shards and partitions on the card: one seeded admit/
+    re-offer/lookup/rotate schedule through indexes of 1, 2 and 4 shards
+    under "auto" and "fanout" on the card, and the partitioned "auto"
+    indexes of ``PART_DEVICES``, beside a one-shard index on the CPU.
+    After every op every index's global state equals the CPU's; a lookup
+    is one multi-set launch under "auto" on one partition, one per shard
+    holding queries under "fanout", and one search with one launch per
+    partition (kernel on a card partition, plain version on a CPU one)
+    on the partitioned indexes, whose partitions' tensors lie on their
+    devices.  The schedule must install, evict, skip (no-allocate) and
+    throttle.  Then host-clock medians of a 12-chunk lookup and a
+    12-fingerprint admission at 1, 2 and 4 partitions on the card."""
     from repro_torch.data.pipeline import fingerprint_blocks
     from repro_torch.kernels.xam_search import ops
     from repro_torch.serve.kv_index import (CHUNK_TOKENS, KVIndexConfig,
@@ -1147,10 +1193,27 @@ def shard_check(np, torch) -> dict:
     idxs = {(n, d): MonarchKVIndex(KVIndexConfig(n_shards=n, **SHARD_CFG),
                                    dispatch=d, device="cuda")
             for n in (1, 2, 4) for d in ("auto", "fanout")}
+    parts = {name: MonarchKVIndex(KVIndexConfig(n_shards=len(devs),
+                                                **SHARD_CFG),
+                                  device="cuda", devices=devs)
+             for name, devs in PART_DEVICES.items()}
+    for name, idx in parts.items():
+        devs = [torch.device(d) for d in PART_DEVICES[name]]
+        if idx.n_parts != len(devs) or idx.set_mesh is None:
+            raise AssertionError(f"{name}: {idx.n_parts} partitions")
+        for k, dev in enumerate(devs):
+            held = (idx._bits[k], idx._valid[k], idx._fp_of[k],
+                    idx._read_after[k], idx._counters[k],
+                    idx._wear_states[k].window_writes,
+                    idx._wear_dyns[k].t_mww_cycles, idx._admit_after[k])
+            if any(t.device != dev for t in held):
+                raise AssertionError(f"{name}: partition {k} not on {dev}")
     cpu = MonarchKVIndex(KVIndexConfig(**SHARD_CFG), device="cpu")
-    every = [cpu, *idxs.values()]
+    every = [cpu, *idxs.values(), *parts.values()]
     rng = np.random.default_rng(17)
-    per_lookup = {"auto": [], "fanout": []}
+    per_lookup = {"auto": [], "fanout": [], "partitioned": []}
+    card_parts = {name: sum(torch.device(d).type == "cuda" for d in devs)
+                  for name, devs in PART_DEVICES.items()}
     t0 = time.perf_counter()
     for step in range(SHARD_STEPS):
         toks = rng.integers(1, 600, (2, 6 * CHUNK_TOKENS)).astype(np.int32)
@@ -1175,14 +1238,25 @@ def shard_check(np, torch) -> dict:
                 if not np.array_equal(got, want):
                     raise AssertionError(f"{n} shards, {d}: hits differ")
                 per_lookup[d].append(made)
+            for name, idx in parts.items():
+                before, searches = ops.LAUNCH_COUNT, idx.stats.searches
+                got = idx.lookup(toks)
+                made = ops.LAUNCH_COUNT - before
+                if made != idx.n_parts or idx.stats.searches != searches + 1:
+                    raise AssertionError(f"{name}: {made} launches, "
+                                         f"{idx.stats.searches - searches} "
+                                         "searches in one lookup")
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{name}: hits differ")
+                per_lookup["partitioned"].append(card_parts[name])
         else:
             for idx in every:
                 idx._rotate()
         want = index_state(np, cpu)
-        for (n, d), idx in idxs.items():
+        for key, idx in [*idxs.items(), *parts.items()]:
             if not same_state(np, index_state(np, idx), want):
-                raise AssertionError(f"step {step}: the card's {n}-shard "
-                                     f"{d} index differs from the CPU's")
+                raise AssertionError(f"step {step}: the {key} index "
+                                     "differs from the CPU's")
     st = cpu.stats
     if not (st.admissions and st.evictions and st.admission_skips
             and st.throttled and st.rotations and per_lookup["auto"]):
@@ -1190,31 +1264,48 @@ def shard_check(np, torch) -> dict:
     # Host-clock times at 4 shards: a 12-chunk lookup, and the admission
     # of 12 fresh fingerprints (one round-grid dispatch under "auto",
     # the per-candidate scans of each partition under "fanout").
-    fresh = iter(rng.integers(1, 2 ** 32, (40, 12), dtype=np.uint32))
+    fresh = iter(rng.integers(1, 2 ** 32, (80, 12), dtype=np.uint32))
     before = ops.LAUNCH_COUNT
     times = {d: {"lookup_ms": host_ms(torch, lambda: idxs[4, d].lookup(
                      toks), 10),
                  "admit_ms": host_ms(torch, lambda: idxs[4, d].admit_fps(
                      next(fresh)), 10)}
              for d in ("auto", "fanout")}
+    # 1, 2 and 4 partitions of the card (4 shards in one partition, then
+    # the partitioned indexes of 2 and 4).
+    by_parts = {1: idxs[4, "auto"], 2: parts["2 x cuda:0"],
+                4: parts["4 x cuda:0"]}
+    part_times = {n: {"lookup_ms": host_ms(torch, lambda: idx.lookup(toks),
+                                           10),
+                      "admit_ms": host_ms(torch, lambda: idx.admit_fps(
+                          next(fresh)), 10)}
+                  for n, idx in by_parts.items()}
     timing_launches = ops.LAUNCH_COUNT - before
-    log(f"shards: {SHARD_STEPS} ops at 1/2/4 shards, auto and fanout on "
-        f"the card equal the CPU after every op; launches per lookup "
-        f"auto {per_lookup['auto']}, fanout {per_lookup['fanout']}; "
-        f"{st.admissions} installs, {st.evictions} evictions, "
-        f"{st.admission_skips} skips, {st.throttled} throttles; at 4 "
-        f"shards lookup / admission of 12 ms: auto "
-        f"{times['auto']['lookup_ms']:.4f} / {times['auto']['admit_ms']:.4f}"
-        f", fanout {times['fanout']['lookup_ms']:.4f} / "
-        f"{times['fanout']['admit_ms']:.4f}")
+    log(f"shards: {SHARD_STEPS} ops at 1/2/4 shards, auto and fanout, and "
+        f"partitioned over {list(PART_DEVICES)}, equal the CPU after every "
+        f"op; launches per lookup auto {per_lookup['auto']}, fanout "
+        f"{per_lookup['fanout']}, partitioned (card launches) "
+        f"{per_lookup['partitioned']}; {st.admissions} installs, "
+        f"{st.evictions} evictions, {st.admission_skips} skips, "
+        f"{st.throttled} throttles; at 4 shards lookup / admission of 12 "
+        f"ms: auto {times['auto']['lookup_ms']:.4f} / "
+        f"{times['auto']['admit_ms']:.4f}, fanout "
+        f"{times['fanout']['lookup_ms']:.4f} / "
+        f"{times['fanout']['admit_ms']:.4f}; at 1/2/4 partitions: " +
+        ", ".join(f"{n}: {t['lookup_ms']:.4f} / {t['admit_ms']:.4f}"
+                  for n, t in part_times.items()))
     lookups = len(per_lookup["auto"]) // 3
+    mixed_cpu = len(PART_DEVICES["mixed"]) - card_parts["mixed"]
     return {"ops": SHARD_STEPS, "lookups": lookups,
             "launches_per_lookup": per_lookup,
-            "launches": sum(per_lookup["auto"]) + sum(per_lookup["fanout"]),
-            "cpu_plain_runs": lookups, "timing_launches": timing_launches,
+            "launches": (sum(per_lookup["auto"]) + sum(per_lookup["fanout"])
+                         + sum(per_lookup["partitioned"])),
+            "cpu_plain_runs": lookups * (1 + mixed_cpu),
+            "timing_launches": timing_launches,
             "installs": st.admissions, "evictions": st.evictions,
             "skips": st.admission_skips, "throttles": st.throttled,
             "rotations": st.rotations, "times_at_4_shards": times,
+            "times_by_partitions": part_times,
             "seconds": time.perf_counter() - t0}
 
 
@@ -1399,7 +1490,8 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
         raise AssertionError(f"multi-set count {counted} != {shards}")
     layer = moe_layer_check(np, torch)
     free_card(torch)
-    edge = edge_phase(np, torch, smi, MOE_EDGE_ARGV, QWEN_DIMS, qwen_tree)
+    edge = edge_phase(np, torch, smi, MOE_EDGE_ARGV, QWEN_DIMS, qwen_tree,
+                      replay_devices=REPLAY_DEVICES)
     free_card(torch)
     log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
     return {"shards": shards, "moe": layer, "edge": edge,
@@ -2934,6 +3026,37 @@ def held_to_baseline(got: dict, bench: str, keys) -> int:
     return n
 
 
+SPLIT_DEVICES = ("cuda:0", "cuda:0")   # the ("grid",) mesh of one card
+
+
+def split_family_check(torch, sim, cfgs, trace_list, fams, res, states):
+    """The first Fig. 9 family whose lane count the two devices divide,
+    through ``simulate_grid(devices=SPLIT_DEVICES)``: two contiguous
+    blocks of lanes, one graph-replayed run each.  Every result and final
+    state equals the unsharded sweep's exactly."""
+    from repro_torch.launch import mesh
+    from repro_torch.pytree import tree_leaves
+    fam = next(f for f in fams if mesh.make_grid_mesh(
+        f["lanes"], SPLIT_DEVICES) is not None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, got_st = sim.simulate_grid({n: cfgs[n] for n in fam["configs"]},
+                                    trace_list, device="cuda",
+                                    devices=SPLIT_DEVICES, return_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for key, r in got.items():
+        if r != res[key]:
+            raise AssertionError(f"split family {key}: {r} != {res[key]}")
+        for a, b in zip(tree_leaves(got_st[key]), tree_leaves(states[key])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"split family {key}: final state "
+                                     "differs from the unsharded run's")
+    return {"configs": fam["configs"], "lanes": fam["lanes"],
+            "devices": list(SPLIT_DEVICES), "keys": len(got),
+            "wall_s": wall, "unsharded_wall_s": fam["wall_s"]}
+
+
 def simulator_phase(torch) -> dict:
     """Fig. 9 quick (7 systems x 11 apps, 2 shape families) and Fig. 11
     quick (11 apps through the M=3 config) on the card, with CUDA-graph
@@ -2950,9 +3073,11 @@ def simulator_phase(torch) -> dict:
     trace_list = [(spec.name, *traces.generate(spec)) for spec in specs]
     gen9_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res9, _, fam9 = run_families(torch, sim, cfgs, trace_list)
+    res9, st9, fam9 = run_families(torch, sim, cfgs, trace_list,
+                                   return_state=True)
     sweep9_s = time.perf_counter() - t0
     fig9 = fig9_numbers(res9, specs, FIG9_SYSTEMS)
+    split = split_family_check(torch, sim, cfgs, trace_list, fam9, res9, st9)
 
     t0 = time.perf_counter()
     cfg11 = fig11_config(sim)
@@ -2971,7 +3096,9 @@ def simulator_phase(torch) -> dict:
     compared += held_to_baseline(
         fig11, "fig11", ["r_req_calibration", "years", "ideal_years",
                          "ss_mechanism_ratio", "claims"])
-    log(f"phase 7: {compared} Fig. 9/11 baseline values reproduced exactly")
+    log(f"phase 7: {compared} Fig. 9/11 baseline values reproduced exactly; "
+        f"family {split['configs']} split over {split['devices']} in "
+        f"{split['wall_s']:.1f} s equals the unsharded run")
     log(f"phase 7: Fig. 9 sweep {sweep9_s:.1f} s, Fig. 11 sweep "
         f"{sweep11_s:.1f} s, peak device memory of one family's "
         f"simulate_grid {peak / 2 ** 20:.1f} MiB")
@@ -2980,6 +3107,7 @@ def simulator_phase(torch) -> dict:
             "trace_gen_s": gen9_s + gen11_s,
             "fig9_sweep_s": sweep9_s, "fig11_sweep_s": sweep11_s,
             "peak_mem_bytes": peak, "families": fam9 + fam11,
+            "split_family": split,
             "fig9": fig9, "fig11": fig11}
 
 
@@ -3475,6 +3603,7 @@ def main() -> int:
                                 + gemma["edge"]["launches"]
                                 + moe["shards"]["launches"]
                                 + moe["edge"]["launches"]
+                                + moe["edge"]["replay_launches"]
                                 + sum(e["launches"] for e in ssm["edges"])
                                 + example_launches["xam_search_multiset"]),
         "hopscotch_lookup": (table["point"]["launches"]["hopscotch_lookup"]
@@ -3499,6 +3628,7 @@ def main() -> int:
         "launches_edge": gemma["edge"]["launches"],
         "launches_shards": moe["shards"]["launches"],
         "launches_moe_edge": moe["edge"]["launches"],
+        "launches_moe_replay_4_partitions": moe["edge"]["replay_launches"],
         "launches_ssm_edges": {e["arch"]: e["launches"]
                                for e in ssm["edges"]},
         "launches_per_request_batch": served["launches"] / served["batches"],

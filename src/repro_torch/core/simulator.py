@@ -24,7 +24,9 @@ runs as one lane-batched step with a leading lane axis ``G`` on every
 state field (config-major: lane ``i * n_traces + j``).  The step makes
 no host synchronisation, so on a CUDA card ``GRAPH_STEPS`` steps are
 captured once per family as a CUDA graph and replayed over the trace;
-on the CPU the same step runs eagerly in a Python loop.
+on the CPU the same step runs eagerly in a Python loop.  ``simulate_grid``
+spreads a family's lanes over the devices of a ``("grid",)`` mesh in
+contiguous blocks, one such run per block on its device.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 from repro_torch.core import controller, lanes, wear
 from repro_torch.core.timing import TABLE1, TECH_TIMING, InterfaceTiming
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.pytree import tree_leaves, tree_map
 
 MLP = 16            # outstanding-miss budget (8 cores x 2 threads, §9.1)
@@ -577,12 +580,14 @@ def run_family(shape: SimShape, wear_on: bool, dyn: DynParams,
     if dev.type == "cuda" and n_req >= GRAPH_STEPS:
         k = GRAPH_STEPS
         a_buf, w_buf = a_t[:k].clone(), w_t[:k].clone()
-        graph = capture_steps(step, state, top, a_buf, w_buf)
-        done = n_req - n_req % k
-        for lo in range(0, done, k):
-            a_buf.copy_(a_t[lo:lo + k])
-            w_buf.copy_(w_t[lo:lo + k])
-            graph.replay()
+        # capture and replay on the lanes' card (its streams, its pool)
+        with torch.cuda.device(dev):
+            graph = capture_steps(step, state, top, a_buf, w_buf)
+            done = n_req - n_req % k
+            for lo in range(0, done, k):
+                a_buf.copy_(a_t[lo:lo + k])
+                w_buf.copy_(w_t[lo:lo + k])
+                graph.replay()
     for i in range(done, n_req):            # the CPU run, or the card's tail
         state, completion = step(state, a_t[i], w_t[i])
         top = torch.maximum(top, completion)
@@ -642,20 +647,30 @@ def simulate_trace(cfg: SimConfig, addrs, is_write,
 
 
 def simulate_grid(cfgs, trace_list, *, return_state: bool = False,
-                  shard: bool = True, device: str | torch.device = "cuda"):
+                  shard: bool = True, device: str | torch.device = "cuda",
+                  devices=None):
     """Run every (config, trace) pair, one lane-batched run per family.
 
     ``cfgs``: dict name -> SimConfig, or an iterable of SimConfigs (their
     ``.name`` is used).  ``trace_list``: iterable of (name, addrs,
-    is_write); all traces must share one length.  ``shard`` spreads the
-    grid axis over devices in the reference; on one device it is a no-op,
-    as there.
+    is_write); all traces must share one length.  With ``shard`` a
+    family's config-major lanes spread over the ``("grid",)`` mesh of
+    ``devices`` (default ``launch.mesh.default_devices(device)``: every
+    visible card for ``"cuda"``, else the one device) in contiguous
+    blocks, one run per block on its device, when the lane count divides
+    the device count (``mesh.make_grid_mesh``, the reference's
+    ``_shard_grid``); otherwise, and on one device, the family runs
+    unsharded on the first device.  Lanes never interact, so every
+    result and final state equals the unsharded run's exactly.
 
     Returns dict[(cfg_name, trace_name)] -> SimResult, plus a dict of
-    final SimStates (same keys, lane axis dropped) when ``return_state``.
+    final SimStates (same keys, lane axis dropped, each on its block's
+    device) when ``return_state``.
     """
-    del shard   # one device: the reference's _shard_grid is a no-op too
-    dev = resolve_device(device)
+    devs = (mesh_mod.default_devices(device) if devices is None
+            else tuple(resolve_device(d) for d in devices))
+    if not devs:
+        raise ValueError("devices must name at least one device")
     named = list(cfgs.items()) if isinstance(cfgs, dict) \
         else [(c.name, c) for c in cfgs]
     tr = [(n, np.asarray(a).astype(np.int32), np.asarray(w, bool))
@@ -667,8 +682,8 @@ def simulate_grid(cfgs, trace_list, *, return_state: bool = False,
         if a.shape[0] != n_req:
             raise ValueError(f"trace {n!r} length {a.shape[0]} != {n_req}; "
                              "grid traces must share one length")
-    addrs_all = torch.from_numpy(np.stack([a for _, a, _ in tr])).to(dev)
-    wr_all = torch.from_numpy(np.stack([w for _, _, w in tr])).to(dev)
+    addrs_all = torch.from_numpy(np.stack([a for _, a, _ in tr]))
+    wr_all = torch.from_numpy(np.stack([w for _, _, w in tr]))
     n_traces = len(tr)
 
     families: dict[SimShape, list[tuple[str, SimConfig]]] = {}
@@ -679,20 +694,31 @@ def simulate_grid(cfgs, trace_list, *, return_state: bool = False,
     states: dict[tuple[str, str], SimState] = {}
     for shape, fam in families.items():
         # Config-major lanes: lane i*n_traces + j = (cfg i, trace j).
-        dyn = dyn_params([cfg for _, cfg in fam for _ in tr], dev)
+        lane_cfgs = [cfg for _, cfg in fam for _ in tr]
         wear_on = any(cfg.wear_enabled for _, cfg in fam)
-        final, top = run_family(
-            shape, wear_on, dyn, addrs_all.repeat(len(fam), 1),
-            wr_all.repeat(len(fam), 1))
-        max_comp = top.cpu().numpy()
-        stats_np = final.stats.cpu().numpy()
+        mesh = (mesh_mod.make_grid_mesh(len(lane_cfgs), devs) if shard
+                else None)
+        blocks = mesh.devices if mesh is not None else devs[:1]
+        per = len(lane_cfgs) // len(blocks)
+        addrs_g = addrs_all.repeat(len(fam), 1)
+        wr_g = wr_all.repeat(len(fam), 1)
+        runs = []                    # every block's run issued first
+        for b, dev in enumerate(blocks):
+            lo = b * per
+            runs.append((lo, *run_family(
+                shape, wear_on, dyn_params(lane_cfgs[lo:lo + per], dev),
+                addrs_g[lo:lo + per].to(dev), wr_g[lo:lo + per].to(dev))))
+        max_comp = np.concatenate([top.cpu().numpy() for _, _, top in runs])
+        stats_np = np.concatenate([final.stats.cpu().numpy()
+                                   for _, final, _ in runs])
         for i, (cname, cfg) in enumerate(fam):
             for j, (tname, _, _) in enumerate(tr):
                 g = i * n_traces + j
                 results[(cname, tname)] = _finish(cfg, max_comp[g],
                                                   stats_np[g])
                 if return_state:
-                    states[(cname, tname)] = _lane(final, g)
+                    lo, final, _ = runs[g // per]
+                    states[(cname, tname)] = _lane(final, g - lo)
     if return_state:
         return results, states
     return results

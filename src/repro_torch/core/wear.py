@@ -361,24 +361,31 @@ def record_write_rows(state: WearState, cfg, supersets, cycles, active,
 
 
 def shard_states(cfg: WearConfig, n_shards: int,
-                 device: str | torch.device = "cuda") -> list[WearState]:
+                 device="cuda") -> list[WearState]:
     """Per-shard wear states, each over ``n_supersets // n_shards``
-    contiguous supersets (the serving index uses one partition)."""
+    contiguous supersets.  ``device`` is one device for every shard, or
+    a sequence of one device per shard (the serving index's partitions,
+    each state on its own partition's device)."""
     if n_shards < 1 or cfg.n_supersets % n_shards != 0:
         raise ValueError(
             f"n_shards={n_shards} must divide n_supersets={cfg.n_supersets}")
+    devices = (list(device) if isinstance(device, (list, tuple))
+               else [device] * n_shards)
+    if len(devices) != n_shards:
+        raise ValueError(f"{len(devices)} devices for {n_shards} shards")
     sub = dataclasses.replace(cfg, n_supersets=cfg.n_supersets // n_shards)
-    return [init_state(sub, device) for _ in range(n_shards)]
+    return [init_state(sub, dev) for dev in devices]
 
 
 def concat_states(states: list[WearState]) -> WearState:
     """Global read-only view over per-shard wear states: per-superset
     fields concatenated in shard order, scalar counters summed, offsets
-    from shard 0.  Reporting only."""
+    from shard 0, all on shard 0's device.  Reporting only."""
     if len(states) == 1:
         return states[0]
-    cat = lambda f: torch.cat([getattr(s, f) for s in states])
-    tot = lambda f: sum(getattr(s, f) for s in states).to(_I32)
+    dev = states[0].window_writes.device
+    cat = lambda f: torch.cat([getattr(s, f).to(dev) for s in states])
+    tot = lambda f: sum(getattr(s, f).to(dev) for s in states).to(_I32)
     return WearState(
         swt_w=cat("swt_w"), swt_d=cat("swt_d"),
         write_counter=tot("write_counter"),

@@ -93,6 +93,14 @@ def compile_and_load(src: pathlib.Path, prefix: str) -> KernelLibrary:
     return KernelLibrary(lib, so, seconds, log, prefix)
 
 
+def on_device(t: torch.Tensor):
+    """``torch.cuda.device`` of ``t``'s card, to hold around a ctypes
+    launch: the CUDA runtime launches on the calling thread's current
+    device, so a partition on another card than the current one would
+    otherwise launch with that card's stream on the wrong device."""
+    return torch.cuda.device(t.device)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as the launchers take it."""
     return torch.cuda.current_stream(t.device).cuda_stream

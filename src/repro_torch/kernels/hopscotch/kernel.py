@@ -42,8 +42,9 @@ def hopscotch_lookup_cuda(table_lo: torch.Tensor, table_hi: torch.Tensor,
     kl = library()
     q = homes.shape[0]
     out = torch.empty(q, dtype=torch.int32, device=table_lo.device)
-    kl.check(kl.lib.hopscotch_lookup_launch(
-        table_lo.data_ptr(), table_hi.data_ptr(), homes.data_ptr(),
-        q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(), table_lo.shape[0],
-        q, window, build.stream_of(table_lo)))
+    with build.on_device(table_lo):
+        kl.check(kl.lib.hopscotch_lookup_launch(
+            table_lo.data_ptr(), table_hi.data_ptr(), homes.data_ptr(),
+            q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(),
+            table_lo.shape[0], q, window, build.stream_of(table_lo)))
     return out

@@ -46,7 +46,8 @@ def string_match_cuda(text: torch.Tensor,
     build.check_cuda_operands("string_match_cuda", text, pattern)
     kl = library()
     out = torch.empty(text.shape[0], dtype=torch.int8, device=text.device)
-    kl.check(kl.lib.string_match_launch(
-        text.data_ptr(), pattern.data_ptr(), out.data_ptr(), text.shape[0],
-        pattern.shape[0], build.stream_of(text)))
+    with build.on_device(text):
+        kl.check(kl.lib.string_match_launch(
+            text.data_ptr(), pattern.data_ptr(), out.data_ptr(),
+            text.shape[0], pattern.shape[0], build.stream_of(text)))
     return out

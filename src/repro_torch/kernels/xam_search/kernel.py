@@ -74,11 +74,12 @@ def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
                          f"the launcher's {MAX_INT32}")
     kl = library()
     out = torch.empty(q, dtype=torch.int32, device=planes.device)
-    kl.check(kl.lib.xam_multiset_launch(
-        keys.data_ptr(), masks.data_ptr(), planes.data_ptr(),
-        valid.data_ptr(), block_sets.data_ptr(), live_blocks.data_ptr(),
-        out.data_ptr(), q // block_q, n_sets, block_q, r, rp, c,
-        int(planes.dtype == torch.uint8), build.stream_of(planes)))
+    with build.on_device(planes):
+        kl.check(kl.lib.xam_multiset_launch(
+            keys.data_ptr(), masks.data_ptr(), planes.data_ptr(),
+            valid.data_ptr(), block_sets.data_ptr(), live_blocks.data_ptr(),
+            out.data_ptr(), q // block_q, n_sets, block_q, r, rp, c,
+            int(planes.dtype == torch.uint8), build.stream_of(planes)))
     return out
 
 
@@ -98,9 +99,11 @@ def xam_search_cuda(keys: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"key rows {r} exceed the kernel's {MAX_KEY_BITS}")
     kl = flat_library()
     out = torch.empty((q, c), dtype=torch.int8, device=data.device)
-    kl.check(kl.lib.xam_search_launch(
-        keys.data_ptr(), masks.data_ptr(), data.data_ptr(), out.data_ptr(),
-        q, r, rp, c, int(data.dtype == torch.uint8), build.stream_of(data)))
+    with build.on_device(data):
+        kl.check(kl.lib.xam_search_launch(
+            keys.data_ptr(), masks.data_ptr(), data.data_ptr(),
+            out.data_ptr(), q, r, rp, c, int(data.dtype == torch.uint8),
+            build.stream_of(data)))
     return out
 
 
@@ -109,5 +112,6 @@ def empty_kernel_cuda(device: torch.device | str = "cuda") -> None:
     launch floor a small search is measured against.  Not a search: it
     counts as no launch of the flat search."""
     kl = flat_library()
-    kl.check(kl.lib.xam_search_floor_launch(
-        torch.cuda.current_stream(device).cuda_stream))
+    with torch.cuda.device(device):
+        kl.check(kl.lib.xam_search_floor_launch(
+            torch.cuda.current_stream(device).cuda_stream))

@@ -1,12 +1,16 @@
-"""Public wrappers for the XAM search kernels (port of the flat search
-and the one-device half of ``repro/kernels/xam_search/ops.py``).
+"""Public wrappers for the XAM search kernels (port of
+``repro/kernels/xam_search/ops.py``).
 
 The host groups a query batch into per-set blocks of ``block_q`` queries
 (:func:`group_queries_by_set`); one launch answers the whole batch.
 :func:`xam_search_multiset_sharded` is the fan-out over set shards that
 the serving index's ``"fanout"`` oracle runs: one launch per shard that
-holds queries, all on the planes' card.  The ``shard_map`` stacked search
-spans several devices and is not ported (one card).
+holds queries, each on its shard's device.
+:func:`xam_search_multiset_stacked` is the partitioned index's search:
+one grouping of the whole batch into the stacked layout of
+:func:`group_queries_by_set_stacked`, then one launch per partition on
+that partition's device (the reference's ``shard_map`` runs one
+``pallas_call`` per device), or one flattened launch over global planes.
 :func:`xam_search_multiset_device` is THE wrapper the serving path calls:
 for tensors on the CPU it runs the plain PyTorch version
 (``ref.xam_search_multiset_plain``), for CUDA tensors it launches the
@@ -32,7 +36,8 @@ from repro_torch.kernels.xam_search.ref import (
 #: Fused-search launches since import: :func:`xam_search_multiset_device`
 #: adds one per call, where it launches the kernel (CUDA) or runs its
 #: plain stand-in (CPU).  The serving index makes one call per lookup
-#: batch, so this equals ``KVIndexStats.searches``.
+#: batch and partition, so this equals ``KVIndexStats.searches`` times
+#: ``n_parts`` (on ``"fanout"``, one per shard holding queries).
 LAUNCH_COUNT = 0
 
 #: Flat-search launches since import: :func:`xam_search_device` adds one
@@ -333,6 +338,85 @@ def _multiset_dispatch(key_bits, set_ids, planes, valid, *, block_q,
         put(keys), put(masks), planes, valid, put(block_sets),
         put(live), block_q=block_q, scoring=scoring)
     return out, slot
+
+
+def xam_search_multiset_stacked(key_bits: np.ndarray, set_ids: np.ndarray,
+                                planes, valid, *, n_parts: int | None = None,
+                                block_q: int | None = None,
+                                scoring: str = "int8") -> np.ndarray:
+    """Partitioned CAM search over the stacked layout.
+
+    ``key_bits`` (Q, R) {0,1} host rows; ``set_ids`` (Q,) GLOBAL set ids.
+    ``planes``/``valid`` are either
+
+    * per-partition lists (partition k owns the contiguous sets ``[k *
+      s_loc, (k + 1) * s_loc)``, its tensors on its own device): the
+      batch is grouped once by :func:`group_queries_by_set_stacked`, then
+      :func:`xam_search_multiset_device` launches once per partition on
+      that partition's device — partitions without queries too, their
+      blocks all dead, as every device runs under the reference's
+      ``shard_map`` — and every launch is made before any result is read
+      back; or
+    * global ``(n_sets, ...)`` tensors with ``n_parts``: the stacked
+      layout flattened into ONE launch with block set ids made global
+      (the reference's co-located branch).
+
+    Returns the (Q,) int32 set-local first matching valid way, -1 = miss.
+    With one partition this is exactly :func:`xam_search_multiset`."""
+    stacked = isinstance(planes, (list, tuple))
+    if stacked:
+        if n_parts not in (None, len(planes)):
+            raise ValueError(f"n_parts={n_parts} but {len(planes)} "
+                             "partition planes")
+        n_parts = len(planes)
+        s_part = planes[0].shape[0]
+        n_sets = s_part * n_parts
+        head = planes[0]
+    else:
+        n_parts = 1 if n_parts is None else n_parts
+        n_sets = planes.shape[0]
+        s_part = n_sets // n_parts
+        head = planes
+    if n_parts == 1:
+        return xam_search_multiset(
+            key_bits, set_ids, planes[0] if stacked else planes,
+            valid[0] if stacked else valid, block_q=block_q,
+            scoring=scoring)
+    key_bits = np.asarray(key_bits, np.int8)
+    set_ids = np.asarray(set_ids, np.int64)
+    if set_ids.size and (set_ids.min() < 0 or set_ids.max() >= n_sets):
+        raise ValueError(f"set ids must lie in [0, {n_sets})")
+    block_q = _pick_block_q(len(set_ids), block_q, plane_format_of(head),
+                            head.device)
+    part_of, slot, block_sets, n_blocks, padded_q = (
+        group_queries_by_set_stacked(set_ids, n_sets, n_parts, block_q))
+    r = key_bits.shape[1]
+    keys = np.zeros((n_parts, padded_q, r), np.int8)
+    masks = np.zeros_like(keys)
+    keys[part_of, slot] = key_bits
+    masks[part_of, slot] = 1
+    live = (np.arange(block_sets.shape[1]) < n_blocks[:, None]).astype(
+        np.int32)
+    if not stacked:
+        bs_global = block_sets + (np.arange(n_parts, dtype=np.int32)
+                                  * s_part)[:, None]
+        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
+            planes.device)
+        out = xam_search_multiset_device(
+            put(keys.reshape(-1, r)), put(masks.reshape(-1, r)), planes,
+            valid, put(bs_global.reshape(-1)), put(live.reshape(-1)),
+            block_q=block_q, scoring=scoring)
+        return out.cpu().numpy().reshape(n_parts, padded_q)[part_of, slot]
+    pending = []
+    for k in range(n_parts):
+        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
+            planes[k].device)
+        pending.append(xam_search_multiset_device(
+            put(keys[k]), put(masks[k]), planes[k], valid[k],
+            put(block_sets[k]), put(live[k]), block_q=block_q,
+            scoring=scoring))
+    out = np.stack([o.cpu().numpy() for o in pending])
+    return out[part_of, slot].astype(np.int32)
 
 
 def xam_search_multiset_sharded(key_bits: np.ndarray, set_ids: np.ndarray,

@@ -26,8 +26,9 @@ archs) and the async ``AdmitQueue`` — behind the stdlib HTTP edge of
 Index knobs mirror ``launch/serve.py``; the edge's own are ``--port`` /
 ``--host``, ``--n-workers``, ``--max-queue``, ``--batch-window-ms``.
 ``--port 0`` binds an ephemeral port and prints it in the "listening
-on" line.  The reference's ``--mesh`` is dropped: the port runs one
-device, on which ``--n-shards`` set shards co-locate.
+on" line.  The reference's ``--mesh`` is dropped: the model runs on one
+device, and the index spreads its ``--n-shards`` set shards over the
+visible cards as ``launch/serve.py``'s does (co-located on one card).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import build_model_fns
+from repro_torch.launch.serve import build_model_fns, index_placement
 from repro_torch.models import transformer
 from repro_torch.serve.admit_queue import AdmitQueue
 from repro_torch.serve.http_frontend import HttpFrontend, ServeRouter
@@ -81,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     # index scaling / durability (same semantics as launch/serve.py)
     ap.add_argument("--n-shards", type=int, default=1,
                     help="set-axis shards of the index (must divide its 8 "
-                         "sets; co-located on the one device)")
+                         "sets; spread over the visible cards)")
     ap.add_argument("--sync-admit", action="store_true")
     ap.add_argument("--max-pending", type=int, default=None)
     ap.add_argument("--admit-policy", default="block",
@@ -132,6 +133,8 @@ def build_frontend(args, params: dict | None = None
         kv_cfg = KVIndexConfig(**kv_kw)
     idx = MonarchKVIndex(kv_cfg, slab_store=KVSlabStore() if resume else None,
                          device=device)
+    if args.n_shards > 1:
+        print(f"[httpd] {index_placement(idx)}")
     admit_q = AdmitQueue(idx, background=not args.sync_admit,
                          max_pending=args.max_pending,
                          policy=args.admit_policy)

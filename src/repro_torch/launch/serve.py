@@ -6,11 +6,12 @@ cache, on one CUDA card (port of ``repro/launch/serve.py``).
 
 The request loop (:func:`run_request_loop`) is the reference's, line for
 line: lookup -> prefill -> submit -> decode, closed- or open-loop.  The
-index, the admission queue and the model all live on ``--device``
-(default ``cuda``; without a visible card the launcher raises rather than
-run on the CPU).  Mesh placement flags are dropped: the port runs one
-device, so ``--n-shards`` set shards co-locate on it (the unsharded
-single-launch path).
+admission queue and the model live on ``--device`` (default ``cuda``;
+without a visible card the launcher raises rather than run on the CPU).
+Mesh placement flags are dropped: the index spreads its ``--n-shards``
+set shards over the visible cards as the reference's spreads them over
+``jax.devices()``, so on one card they co-locate (the unsharded
+single-launch path); the placement line says which.
 """
 from __future__ import annotations
 
@@ -193,7 +194,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="t_MWW cycle domain: index ops or wall time")
     ap.add_argument("--n-shards", type=int, default=1,
                     help="set-axis shards of the index (must divide its 8 "
-                         "sets; co-located on the one device)")
+                         "sets; spread over the visible cards)")
     ap.add_argument("--sync-admit", action="store_true",
                     help="admit inline instead of behind the async "
                          "AdmitQueue")
@@ -203,6 +204,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["block", "shed", "defer"],
                     help="back-pressure when --max-pending is hit")
     return ap.parse_args(argv)
+
+
+def index_placement(idx: MonarchKVIndex) -> str:
+    """Where a sharded index lives: co-located on one device (the
+    one-launch path), or its partitions and their devices."""
+    place = ("co-located, 1 device (collapsed to the unsharded "
+             "single-launch path)" if idx.set_mesh is None else
+             f"one launch per partition over {idx.n_parts} partitions on "
+             + ", ".join(str(d) for d in idx.set_mesh.devices))
+    return (f"index sharded over {idx.n_shards} set shards "
+            f"({idx.sets_per_shard} sets each; {place})")
 
 
 def serve(args: argparse.Namespace) -> ServeRun:
@@ -239,9 +251,7 @@ def serve(args: argparse.Namespace) -> ServeRun:
         print(f"[serve] resume path off: {cfg.name} has recurrent layers "
               "(prefix hits counted, prefill not skipped)")
     if args.n_shards > 1:
-        print(f"[serve] index sharded over {args.n_shards} set shards "
-              f"({idx.sets_per_shard} sets each; co-located, 1 device "
-              "(collapsed to the unsharded single-launch path))")
+        print(f"[serve] {index_placement(idx)}")
     admit_q = AdmitQueue(idx, background=not args.sync_admit,
                          max_pending=args.max_pending,
                          policy=args.admit_policy)

@@ -1,4 +1,4 @@
-"""MonarchKVIndex on one device — port of ``repro/serve/kv_index.py``.
+"""MonarchKVIndex — port of ``repro/serve/kv_index.py``.
 
 A paged KV prefix cache whose INDEX is a Monarch flat-CAM: every 16-token
 chunk is fingerprinted (murmur3), each fingerprint maps to one of
@@ -12,34 +12,45 @@ itself, D̄&R̄ re-read counters and the §8 wear state.
 * ADMISSION: ``admit_fps`` packs candidates into the round grid of
   ``group_admits_stacked`` — round r holds each set's rank-r candidate,
   so the sets of one round are pairwise distinct — and
-  :func:`_admit_rounds` admits round after round, each round vectorized
+  :func:`_admit_round` admits round after round, each round vectorized
   over its lanes: residency probe, no-allocate gate, t_MWW throttle
   (``core/wear.py``), cold-victim way selection, column install and wear
   recording.  Bit-equal to admitting one fingerprint at a time in batch
-  order.  The decisions come back to the host in one transfer, which is
-  the only synchronisation of an admission.
+  order.  The decisions come back to the host in one transfer per
+  partition, the only synchronisation of an admission.
 * ROTATION: every ``rotate_every`` admissions the planes roll by the
   prime stride 7 in lockstep with the ``_set_of`` offset, so resident
   entries stay searchable.
 
-All index state lives on ``device`` and changes in place, where the
-reference donated its buffers.  The fingerprint plane is stored as int32
+All index state lives on the partitions' devices and changes in place
+(or is rebound, by a rotation across partitions), where the reference
+donated its buffers.  The fingerprint plane is stored as int32
 (the bit pattern of the uint32 fingerprint — torch's uint32 support is
 partial); equality is all the index asks of it, and every report views it
 back as uint32.  Lookups (serving thread) and admissions (``AdmitQueue``
-worker) both run on the device's default stream, so the card orders them.
+worker) both run on each card's default stream, so the card orders them.
 
 SHARDS: ``n_shards`` splits the sets into contiguous blocks
-(``geometry.shard_of_set``).  On one card every shard co-locates, and
-under ``dispatch="auto"`` the state is one partition (``n_parts == 1``):
-the path above, bit for bit.  ``dispatch="fanout"`` keeps the reference's
-differential oracles: state in one partition per logical shard, one
-search launch per shard that holds queries, admission by the
+(``geometry.shard_of_set``).  Under ``dispatch="auto"`` the state lives
+in ``n_parts = mesh.set_partitions(n_shards, devices)`` partitions, one
+per device of the ``("sets",)`` mesh (``launch/mesh.py``), as in the
+reference's single controller: one process drives a tuple of devices.
+``devices`` defaults to every visible card (``"cuda"``) or the one CPU,
+so on one card every shard co-locates (``n_parts == 1``) and the path
+above runs bit for bit.  With several partitions a lookup is one
+grouping of the batch and one search launch per partition on its device
+(``xam_search_multiset_stacked``), an admission runs each partition's
+rounds of the round grid on its device, round r on every partition
+before round r + 1, and a rotation is a boundary exchange
+(``mesh.make_sharded_roll``) that moves no plane data through the host.
+A device may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``).
+``dispatch="fanout"`` keeps the reference's differential oracles: state
+in one partition per logical shard (placed by ``mesh.set_shard_devices``),
+one search launch per shard that holds queries, admission by the
 per-candidate :func:`_admit_batch` scan of each partition, rotation
 through the global views.  Every hit, install, eviction, throttle and
-wear report is the same at every shard count under either dispatch.
-The ``shard_map`` paths that spread partitions over several devices are
-not ported (one card).
+wear report is the same at every shard count, partition count and
+placement under either dispatch.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from repro_torch.data.pipeline import (fingerprint_blocks, murmur3_np,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import pack_bits_np, resolve_plane_format
 from repro_torch.kernels.xam_search import ops as xam_ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.pytree import tree_leaves
 
 CHUNK_TOKENS = 16
@@ -194,86 +206,79 @@ class KVSlabStore:
             return sum(self._nbytes(s) for s in self._resident.values())
 
 
-def _admit_rounds(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
-                  admit_after: int, rounds: list[slice], sets, fps, bitcols,
-                  cycles, touches):
-    """Segmented-parallel admission over the round grid (one partition).
+def _admit_round(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
+                 admit_after, lanes: slice, sets, fps, bitcols, cycles,
+                 touches, outs: dict) -> wear.WearState:
+    """One round of the segmented-parallel admission of one partition.
 
-    ``sets``/``fps`` (int32 view)/``bitcols``/``cycles``/``touches`` are
-    the batch's candidates on the device, ordered by round; ``rounds[r]``
-    slices round r's lanes, whose sets are pairwise distinct.  Every lane
-    is a real candidate (the host drops the grid's padding before
-    upload), so each write below targets a distinct (set, way) and
-    nothing collides.  Updates the planes in ``st`` in place (the
-    reference donated them) and returns ``(wear_state, outs)`` with the
-    per-candidate decision tensors in round order."""
+    ``sets`` (partition-local)/``fps`` (int32 view)/``bitcols``/
+    ``cycles``/``touches`` are the partition's candidates on its device,
+    ordered by round; ``lanes`` slices this round's, whose sets are
+    pairwise distinct.  Every lane is a real candidate (the host drops
+    the grid's padding before upload), so each write below targets a
+    distinct (set, way) and nothing collides.  Updates the planes in
+    ``st`` in place (the reference donated them), writes the lanes'
+    decisions into ``outs`` and returns the new wear state.  Device work
+    only: nothing is read back to the host."""
     bits, valid, fp_of, read_after = (st["bits"], st["valid"], st["fp_of"],
                                       st["read_after"])
     n_ways = valid.shape[1]
-    dev = valid.device
-    iota = torch.arange(n_ways, dtype=torch.int32, device=dev)
-    b = sets.shape[0]
-    outs = {k: torch.empty(b, dtype=dt, device=dev) for k, dt in (
-        ("is_res", torch.bool), ("skipped", torch.bool),
-        ("throttled", torch.bool), ("install", torch.bool),
-        ("way", torch.int32), ("evict", torch.bool),
-        ("old_fp", torch.int32))}
-    for lanes in rounds:
-        s = sets[lanes].long()                      # (K,) distinct sets
-        fp, bitcol = fps[lanes], bitcols[lanes]
-        cycle, touch = cycles[lanes], touches[lanes]
+    iota = torch.arange(n_ways, dtype=torch.int32, device=valid.device)
+    s = sets[lanes].long()                      # (K,) distinct sets
+    fp, bitcol = fps[lanes], bitcols[lanes]
+    cycle, touch = cycles[lanes], touches[lanes]
 
-        vrow = valid[s]                             # (K, W)
-        frow = fp_of[s]
-        hitv = (vrow == 1) & (frow == fp[:, None])
-        is_res = hitv.any(dim=1)
-        res_w = hitv.to(torch.int32).argmax(dim=1)  # first max, 0 if none
-        # resident re-offer: D/R metadata only (marks the way re-read).
-        read_after[s, res_w] += is_res.to(torch.int32)
+    vrow = valid[s]                             # (K, W)
+    frow = fp_of[s]
+    hitv = (vrow == 1) & (frow == fp[:, None])
+    is_res = hitv.any(dim=1)
+    res_w = hitv.to(torch.int32).argmax(dim=1)  # first max, 0 if none
+    # resident re-offer: D/R metadata only (marks the way re-read).
+    read_after[s, res_w] += is_res.to(torch.int32)
 
-        # no-allocate gate (D̄&R̄ "never accessed" filter).
-        skipped = ~is_res & (touch < admit_after)
+    # no-allocate gate (D̄&R̄ "never accessed" filter).
+    skipped = ~is_res & (touch < admit_after)
 
-        # t_MWW lifetime throttle (reject-before-write, per-set window).
-        locked = wear.is_locked(ws, s, cycle)
-        over = wear.window_would_exceed(ws, wdyn, s, cycle)
-        throttled = ~is_res & ~skipped & (locked | over)
-        install = ~is_res & ~skipped & ~throttled
+    # t_MWW lifetime throttle (reject-before-write, per-set window).
+    locked = wear.is_locked(ws, s, cycle)
+    over = wear.window_would_exceed(ws, wdyn, s, cycle)
+    throttled = ~is_res & ~skipped & (locked | over)
+    install = ~is_res & ~skipped & ~throttled
 
-        # Way selection: first free way, else counter-ordered cold victim.
-        free = vrow == 0
-        has_free = free.any(dim=1)
-        free_w = free.to(torch.int32).argmax(dim=1)
-        order = (iota[None, :] + st["counter"][s][:, None]) % n_ways
-        cold = torch.gather(read_after[s], 1, order.long()) == 0
-        first_cold = torch.gather(
-            order, 1, cold.to(torch.int32).argmax(dim=1, keepdim=True))[:, 0]
-        victim = torch.where(cold.any(dim=1), first_cold, order[:, 0])
-        way = torch.where(has_free, free_w, victim).to(torch.int32)
-        wl = way.long()
-        evict = install & ~has_free
-        old_fp = torch.gather(frow, 1, wl[:, None])[:, 0]
-        st["counter"][s] += evict.to(torch.int32)
+    # Way selection: first free way, else counter-ordered cold victim.
+    free = vrow == 0
+    has_free = free.any(dim=1)
+    free_w = free.to(torch.int32).argmax(dim=1)
+    order = (iota[None, :] + st["counter"][s][:, None]) % n_ways
+    cold = torch.gather(read_after[s], 1, order.long()) == 0
+    first_cold = torch.gather(
+        order, 1, cold.to(torch.int32).argmax(dim=1, keepdim=True))[:, 0]
+    victim = torch.where(cold.any(dim=1), first_cold, order[:, 0])
+    way = torch.where(has_free, free_w, victim).to(torch.int32)
+    wl = way.long()
+    evict = install & ~has_free
+    old_fp = torch.gather(frow, 1, wl[:, None])[:, 0]
+    st["counter"][s] += evict.to(torch.int32)
 
-        # Column install: installing lanes write their column, the others
-        # write back what is there ((set, way) pairs are distinct).
-        keep = lambda new, cur: torch.where(
-            install.view(-1, *([1] * (cur.dim() - 1))), new, cur)
-        bits[s, :, wl] = keep(bitcol.to(bits.dtype), bits[s, :, wl])
-        valid[s, wl] = keep(torch.ones_like(vrow[:, 0]), valid[s, wl])
-        fp_of[s, wl] = keep(fp, fp_of[s, wl])
-        read_after[s, wl] = keep(torch.zeros_like(way), read_after[s, wl])
-        st["set_writes"][s] += install.to(torch.int32)
+    # Column install: installing lanes write their column, the others
+    # write back what is there ((set, way) pairs are distinct).
+    keep = lambda new, cur: torch.where(
+        install.view(-1, *([1] * (cur.dim() - 1))), new, cur)
+    bits[s, :, wl] = keep(bitcol.to(bits.dtype), bits[s, :, wl])
+    valid[s, wl] = keep(torch.ones_like(vrow[:, 0]), valid[s, wl])
+    fp_of[s, wl] = keep(fp, fp_of[s, wl])
+    read_after[s, wl] = keep(torch.zeros_like(way), read_after[s, wl])
+    st["set_writes"][s] += install.to(torch.int32)
 
-        # Wear recording fused with the install (§8 record_write
-        # semantics over the round's distinct rows).
-        ws = wear.record_write_rows(ws, wdyn, s, cycle, install)
+    # Wear recording fused with the install (§8 record_write
+    # semantics over the round's distinct rows).
+    ws = wear.record_write_rows(ws, wdyn, s, cycle, install)
 
-        for k, v in (("is_res", is_res), ("skipped", skipped),
-                     ("throttled", throttled), ("install", install),
-                     ("way", way), ("evict", evict), ("old_fp", old_fp)):
-            outs[k][lanes] = v
-    return ws, outs
+    for k, v in (("is_res", is_res), ("skipped", skipped),
+                 ("throttled", throttled), ("install", install),
+                 ("way", way), ("evict", evict), ("old_fp", old_fp)):
+        outs[k][lanes] = v
+    return ws
 
 
 def _where_tree(cond: torch.Tensor, new, old):
@@ -360,38 +365,42 @@ def _admit_batch(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
 def _shard_property(name: str, doc: str, settable: bool = True):
     """Global view over a per-partition list of tensors: THE tensor of
     partition 0 when there is one partition, else the partitions
-    concatenated in set order.  Assigning a global tensor re-splits it
-    into one contiguous block per partition."""
+    concatenated in set order on partition 0's device.  Assigning a
+    global tensor re-splits it into one contiguous block per partition,
+    each placed on its partition's device."""
     def get(self):
         parts = getattr(self, name)
         if len(parts) == 1:
             return parts[0]
-        return torch.cat(parts, dim=0)
+        return torch.cat([x.to(self.device) for x in parts], dim=0)
 
     def set_(self, value):
         parts = getattr(self, name)
         if len(parts) == 1:
             parts[0] = value
         else:
-            setattr(self, name, [
-                value[self._slice(k)].clone() for k in range(self.n_parts)])
+            setattr(self, name,
+                    mesh_mod.set_axis_sharding(self._placement, value))
 
     return property(get, set_ if settable else None, None, doc)
 
 
 class MonarchKVIndex:
-    """Monarch flat-CAM prefix index on one device (see module docstring).
+    """Set-partitioned Monarch flat-CAM prefix index (see module
+    docstring).
 
     Parameters
     ----------
     cfg : KVIndexConfig, optional
         Geometry/durability knobs; default-constructed per instance.
     dispatch : {"auto", "fanout"}
-        ``"auto"``: one partition on the card (every shard co-located),
-        one search launch per lookup, the round-grid admission.
-        ``"fanout"``: the reference's differential oracle — one partition
-        per logical shard, one search launch per shard holding queries,
-        rotation through the global views.  No result depends on it.
+        ``"auto"``: one partition per device of the ``("sets",)`` mesh
+        (one when every shard co-locates), one grouping and one search
+        launch per partition per lookup, the round-grid admission, the
+        boundary-exchange rotation.  ``"fanout"``: the reference's
+        differential oracle — one partition per logical shard, one search
+        launch per shard holding queries, rotation through the global
+        views.  No result depends on it.
     admit_dispatch : {"auto", "fanout"} or None
         Admission policy; None follows ``dispatch``.  ``"fanout"`` runs
         the per-candidate :func:`_admit_batch` scan of each partition
@@ -402,8 +411,14 @@ class MonarchKVIndex:
     slab_store : KVSlabStore, optional
         Kept in lockstep by the admission fold.
     device : str or torch.device
-        Where the index planes live; default ``"cuda"`` (raises when no
-        card is visible).
+        Where the index lives when ``devices`` is None: ``"cuda"`` (the
+        default; raises when no card is visible) spreads it over every
+        visible card, ``"cuda:k"`` or ``"cpu"`` keeps it on that one
+        device.
+    devices : sequence of devices, optional
+        The partitions' devices, one per mesh position; repeats allowed
+        (``("cpu",) * 4`` partitions the index four ways on the CPU).
+        The index takes the first ``set_partitions(n_shards, devices)``.
 
     Attributes
     ----------
@@ -415,13 +430,19 @@ class MonarchKVIndex:
         holding the uint32 bit pattern) and D̄&R̄ (int32) planes, and the
         ``(n_sets,)`` int32 install and replacement counters.  With one
         partition these are THE state tensors; with several, a
-        concatenation of the partitions' (assigning the first four
-        re-splits them).
+        concatenation of the partitions' on partition 0's device
+        (assigning the first four re-splits them onto the partitions'
+        devices).
     n_shards, sets_per_shard : int
         Logical set shards and the sets each owns.
     n_parts, sets_per_part : int
-        Partitions holding state: 1 under ``"auto"`` (one card),
+        Partitions holding state: the ``("sets",)`` mesh size under
+        ``"auto"`` (1 with one device: every shard co-locates),
         ``n_shards`` under ``"fanout"``.
+    set_mesh : launch.mesh.Mesh or None
+        The ``("sets",)`` mesh, None when the devices hold one partition.
+    device : torch.device
+        Partition 0's device, where the global views gather.
 
     Examples
     --------
@@ -437,7 +458,7 @@ class MonarchKVIndex:
     def __init__(self, cfg: KVIndexConfig | None = None,
                  dispatch: str = "auto", admit_dispatch: str | None = None,
                  now_fn=None, slab_store: KVSlabStore | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", devices=None):
         assert dispatch in ("auto", "fanout"), dispatch
         if admit_dispatch is None:
             admit_dispatch = dispatch
@@ -454,7 +475,6 @@ class MonarchKVIndex:
             raise ValueError(
                 f"KVIndexConfig.fingerprint={c.fingerprint!r}: expected "
                 "'block' or 'prefix'")
-        self.device = resolve_device(device)
         self.slab_store = slab_store
         self.clock = c.clock
         self._now_fn = time.monotonic if now_fn is None else now_fn
@@ -464,10 +484,32 @@ class MonarchKVIndex:
         self.admit_dispatch = admit_dispatch
         self.n_shards = c.n_shards
         self.sets_per_shard = geometry.sets_per_shard(c.n_sets, c.n_shards)
-        # One card: under "auto" every shard co-locates in one partition
-        # (sharding only relabels who stores a set); "fanout" keeps one
-        # partition per logical shard.
-        self.n_parts = c.n_shards if dispatch == "fanout" else 1
+        # ("sets",) mesh placement: under "auto" one partition per mesh
+        # device (sharding only relabels who stores a set, so coarsening
+        # co-located shards into one partition changes no result); with
+        # one device every shard co-locates in one partition.  "fanout"
+        # keeps one partition per logical shard.
+        devs = (mesh_mod.default_devices(device) if devices is None
+                else tuple(resolve_device(d) for d in devices))
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        self.set_mesh = mesh_mod.make_set_mesh(c.n_shards, devs)
+        if dispatch == "fanout":
+            self.n_parts = c.n_shards
+            self._devices = (mesh_mod.set_shard_devices(self.set_mesh,
+                                                        c.n_shards)
+                             or [devs[0]] * c.n_shards)
+        elif self.set_mesh is None:
+            self.n_parts = 1
+            self._devices = [devs[0]]
+        else:
+            self.n_parts = self.set_mesh.size
+            self._devices = list(self.set_mesh.devices)
+        self.device = self._devices[0]
+        # the partitions' devices as a mesh (one position per partition,
+        # also under "fanout"): where global views split and knobs go
+        self._placement = mesh_mod.Mesh(("sets",), (self.n_parts,),
+                                        tuple(self._devices))
         self.sets_per_part = c.n_sets // self.n_parts
         s_loc = self.sets_per_part
         self.plane_format = resolve_plane_format(c.plane_format)
@@ -479,8 +521,7 @@ class MonarchKVIndex:
                            else c.key_bits // 8)
         plane_dtype = torch.int8 if self.plane_format == "int8" else torch.uint8
         parts = lambda shape, dt: [
-            torch.zeros(shape, dtype=dt, device=self.device)
-            for _ in range(self.n_parts)]
+            torch.zeros(shape, dtype=dt, device=dev) for dev in self._devices]
         self._bits = parts((s_loc, self.plane_rows, c.set_ways), plane_dtype)
         self._valid = parts((s_loc, c.set_ways), torch.int8)
         self._fp_of = parts((s_loc, c.set_ways), torch.int32)
@@ -491,7 +532,9 @@ class MonarchKVIndex:
         # set_ways * m_writes, every rotate signal disabled (wr_shift=32:
         # int32 MSB distances never reach 32) — which is what makes the
         # vectorized record_write_rows exact.  One state per partition,
-        # over that partition's sets.
+        # over that partition's sets, on its device; the knobs and the
+        # no-allocate threshold are placed once on each distinct device,
+        # so a batch's dispatch moves none of them.
         self.wear_cfg = wear.WearConfig(
             n_supersets=c.n_sets, m_writes=c.m_writes,
             dc_limit=1 << 30, wc_limit=1 << 30, wr_shift=32,
@@ -499,9 +542,13 @@ class MonarchKVIndex:
             clock=c.clock)
         self.wear_dyn = wear.dyn_of(self.wear_cfg, self.device)
         self._wear_states = wear.shard_states(self.wear_cfg, self.n_parts,
-                                              self.device)
-        self._wear_dyns = [self.wear_dyn] * self.n_parts
-        self._admit_after = [c.admit_after_reads] * self.n_parts
+                                              self._devices)
+        dyns = mesh_mod.replicated_sharding(self._placement, self.wear_dyn)
+        after = mesh_mod.replicated_sharding(
+            self._placement,
+            torch.tensor(c.admit_after_reads, dtype=torch.int32))
+        self._wear_dyns = [dyns[dev] for dev in self._devices]
+        self._admit_after = [after[dev] for dev in self._devices]
         # Host-side policy shadow (map + mirrors).
         self.valid_np = np.zeros((c.n_sets, c.set_ways), bool)
         self.fp_of_np = np.zeros((c.n_sets, c.set_ways), np.uint32)
@@ -511,12 +558,9 @@ class MonarchKVIndex:
         self.ops_total = 0          # op counter == t_MWW cycle proxy
         self.stats = KVIndexStats()
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-    def _slice(self, k: int) -> slice:
-        """Global-set slice owned by partition k."""
-        return geometry.shard_set_slice(k, self.cfg.n_sets, self.n_parts)
+    def _put(self, x: np.ndarray, k: int) -> torch.Tensor:
+        """Place a host array on partition k's device."""
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self._devices[k])
 
     def _part_state(self, k: int) -> dict:
         return {"bits": self._bits[k], "valid": self._valid[k],
@@ -588,8 +632,9 @@ class MonarchKVIndex:
 
     def lookup(self, tokens: np.ndarray) -> np.ndarray:
         """(B, S) tokens -> (B, S // 16) bool: True where the chunk is
-        cached.  ONE fused search launch for the whole batch (one per
-        shard holding queries on the ``"fanout"`` oracle)."""
+        cached.  ONE search for the whole batch: one fused launch, or one
+        grouping and one launch per partition on its device (one launch
+        per shard holding queries on the ``"fanout"`` oracle)."""
         self._maybe_rebase_clock()
         fps = self.fingerprints(tokens)
         flat = fps.reshape(-1)
@@ -602,6 +647,10 @@ class MonarchKVIndex:
         if self.n_parts == 1:
             ways = xam_ops.xam_search_multiset(key_bits, sets, self._bits[0],
                                                self._valid[0])
+            self.stats.searches += 1
+        elif self.dispatch == "auto":
+            ways = xam_ops.xam_search_multiset_stacked(
+                key_bits, sets, self._bits, self._valid)
             self.stats.searches += 1
         else:
             ways = xam_ops.xam_search_multiset_sharded(
@@ -687,30 +736,55 @@ class MonarchKVIndex:
 
     def _admit_stacked(self, fps, sets, touches, bitcols, cycles):
         """ONE dispatch over the round grid of ``group_admits_stacked``:
-        candidates are uploaded in round order (the grid's padding lanes
-        are never uploaded), admitted by :func:`_admit_rounds`, and the
-        decisions return to the host in one transfer, in batch order."""
+        each partition's candidates are uploaded to its device in round
+        order (the grid's padding lanes are never uploaded) and admitted
+        by its own rounds (:func:`_admit_round`), round r issued on every
+        partition before round r + 1 so that partitions on different
+        cards overlap; each partition's decisions return to the host in
+        one transfer, after every launch, and go back to batch order."""
         c = self.cfg
-        _, row, _, _, _ = xam_ops.group_admits_stacked(
-            sets, c.n_sets, 1, lo=ADMIT_BUCKET_LO)
-        order = np.argsort(row, kind="stable")     # round-major, batch order
-        bounds = np.concatenate([[0], np.cumsum(np.bincount(row))])
-        rounds = [slice(int(lo), int(hi))
-                  for lo, hi in zip(bounds[:-1], bounds[1:])]
+        part_of, row, _, _, _ = xam_ops.group_admits_stacked(
+            sets, c.n_sets, self.n_parts, lo=ADMIT_BUCKET_LO)
         xam_ops.count_launch("ADMIT_LAUNCH_COUNT")
         self.stats.admit_calls += 1
-        self._wear_states[0], outs = _admit_rounds(
-            self._part_state(0), self._wear_states[0], self._wear_dyns[0],
-            self._admit_after[0], rounds,
-            self._put(sets[order]), self._put(fps[order].view(np.int32)),
-            self._put(bitcols[order]), self._put(cycles[order]),
-            self._put(touches[order]))
-        # One transfer for the whole batch; un-permute to batch order.
-        host = {k: v.cpu().numpy() for k, v in outs.items()}
+        jobs = []
+        for k in range(self.n_parts):
+            sel = np.nonzero(part_of == k)[0]
+            if sel.size == 0:
+                continue
+            # round-major, batch order within a round
+            order = sel[np.argsort(row[sel], kind="stable")]
+            bounds = np.concatenate([[0], np.cumsum(np.bincount(row[order]))])
+            rounds = [slice(int(lo), int(hi))
+                      for lo, hi in zip(bounds[:-1], bounds[1:])]
+            lanes = tuple(self._put(x, k) for x in (
+                sets[order] - k * self.sets_per_part,
+                fps[order].view(np.int32), bitcols[order], cycles[order],
+                touches[order]))
+            outs = {key: torch.empty(order.size, dtype=dt,
+                                     device=self._devices[k])
+                    for key, dt in (("is_res", torch.bool),
+                                    ("skipped", torch.bool),
+                                    ("throttled", torch.bool),
+                                    ("install", torch.bool),
+                                    ("way", torch.int32),
+                                    ("evict", torch.bool),
+                                    ("old_fp", torch.int32))}
+            jobs.append((k, order, rounds, lanes, outs))
+        for r in range(max(len(job[2]) for job in jobs)):
+            for k, _, rounds, lanes, outs in jobs:
+                if r < len(rounds):
+                    self._wear_states[k] = _admit_round(
+                        self._part_state(k), self._wear_states[k],
+                        self._wear_dyns[k], self._admit_after[k], rounds[r],
+                        *lanes, outs)
         res = {}
-        for k, v in host.items():
-            res[k] = np.empty_like(v)
-            res[k][order] = v
+        for _, order, _, _, outs in jobs:
+            for key, v in outs.items():
+                v = v.cpu().numpy()
+                if key not in res:
+                    res[key] = np.empty(sets.shape[0], v.dtype)
+                res[key][order] = v
         return (res["skipped"], res["throttled"], res["install"], res["way"],
                 res["evict"], res["old_fp"].view(np.uint32))
 
@@ -733,9 +807,10 @@ class MonarchKVIndex:
             self._wear_states[k], outs = _admit_batch(
                 self._part_state(k), self._wear_states[k],
                 self._wear_dyns[k], self._admit_after[k],
-                self._put(sets[sel] - k * self.sets_per_part),
-                self._put(fps[sel].view(np.int32)), self._put(bitcols[sel]),
-                self._put(cycles[sel]), self._put(touches[sel]))
+                self._put(sets[sel] - k * self.sets_per_part, k),
+                self._put(fps[sel].view(np.int32), k),
+                self._put(bitcols[sel], k), self._put(cycles[sel], k),
+                self._put(touches[sel], k))
             xam_ops.count_launch("ADMIT_LAUNCH_COUNT")
             self.stats.admit_calls += 1
             launches.append((sel, outs))
@@ -748,8 +823,11 @@ class MonarchKVIndex:
     def _rotate(self):
         """Rotary remap (prime stride 7): roll the set planes by the
         global permutation ``set -> set + 7 (mod n_sets)`` while the
-        ``_set_of`` offset moves in lockstep.  With several partitions
-        (the ``"fanout"`` oracle) the roll goes through the global views:
+        ``_set_of`` offset moves in lockstep.  One partition: one roll on
+        its device.  Several under ``"auto"``: the boundary exchange of
+        ``mesh.make_sharded_roll`` (the reference's ``ppermute``), every
+        new block built before any is rebound, no plane data through the
+        host.  The ``"fanout"`` oracle rolls through the global views:
         the getter concatenates, the setter re-splits.  Wear and
         replacement counters track PHYSICAL sets and stay.  An
         ``AdmitQueue`` drains first."""
@@ -758,9 +836,15 @@ class MonarchKVIndex:
         self.offset = (self.offset + ROTATE_STRIDE) % n
         self.stats.rotations += 1
         if shift:
-            for name in ("bits", "valid", "fp_of", "read_after"):
-                setattr(self, name,
-                        torch.roll(getattr(self, name), shift, dims=0))
+            if self.n_parts > 1 and self.dispatch == "auto":
+                roll = mesh_mod.make_sharded_roll(self.set_mesh, n, shift)
+                (self._bits, self._valid, self._fp_of,
+                 self._read_after) = roll(self._bits, self._valid,
+                                          self._fp_of, self._read_after)
+            else:
+                for name in ("bits", "valid", "fp_of", "read_after"):
+                    setattr(self, name,
+                            torch.roll(getattr(self, name), shift, dims=0))
             self.valid_np = np.roll(self.valid_np, shift, axis=0)
             self.fp_of_np = np.roll(self.fp_of_np, shift, axis=0)
             self.slot_of = {fp: ((s + shift) % n, w)
@@ -799,7 +883,7 @@ class MonarchKVIndex:
         throttled_now = sum(
             int(wear.window_would_exceed(
                 self._wear_states[k], self._wear_dyns[k],
-                torch.arange(self.sets_per_part, device=self.device),
+                torch.arange(self.sets_per_part, device=self._devices[k]),
                 cyc).sum())
             for k in range(self.n_parts))
         return {

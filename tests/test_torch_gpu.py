@@ -524,7 +524,7 @@ def test_shards_on_card_match_cpu(plane_format):
             for (n, d), idx in card.items():
                 before = ops.LAUNCH_COUNT
                 np.testing.assert_array_equal(idx.lookup(toks), want)
-                expect = (1 if d == "auto" else
+                expect = (idx.n_parts if d == "auto" else
                           len(np.unique(sets // idx.sets_per_part)))
                 assert ops.LAUNCH_COUNT - before == expect, (n, d)
         else:
@@ -535,6 +535,119 @@ def test_shards_on_card_match_cpu(plane_format):
             assert idx.bits.is_cuda
             _assert_state_equal(_index_state(idx), want, (step, key))
     assert cpu.stats.admissions and cpu.stats.admission_skips
+
+
+def _partitioned_schedule(devices, plane_format, steps=12):
+    """A partitioned "auto" index over ``devices`` against a one-shard CPU
+    index through one seeded admit/re-offer/lookup/rotate schedule: equal
+    state after every op, one search and one multi-set launch per
+    partition on a CUDA device per lookup; each partition's tensors on its
+    device."""
+    from repro_torch.data.pipeline import fingerprint_blocks
+    from repro_torch.serve.kv_index import KVIndexConfig, MonarchKVIndex
+    cfg = dict(n_sets=8, set_ways=4, admit_after_reads=1, m_writes=1,
+               window_ops=64, rotate_every=1 << 30,
+               plane_format=plane_format)
+    n = len(devices)
+    idx = MonarchKVIndex(KVIndexConfig(n_shards=n, **cfg), devices=devices)
+    cpu = MonarchKVIndex(KVIndexConfig(**cfg), device="cpu")
+    assert idx.n_parts == n
+    on_card = sum(torch.device(d).type == "cuda" for d in devices)
+    rng = np.random.default_rng(29)
+    for step in range(steps):
+        toks = rng.integers(1, 600, (2, 96)).astype(np.int32)
+        if step % 4 in (0, 2):
+            fps = np.unique(fingerprint_blocks(toks, 16).ravel())
+            for _ in range(2 if step % 4 == 0 else 1):
+                for x in (cpu, idx):
+                    x.admit_fps(fps)
+        elif step % 4 == 1:
+            before, searches = ops.LAUNCH_COUNT, idx.stats.searches
+            np.testing.assert_array_equal(idx.lookup(toks), cpu.lookup(toks))
+            assert ops.LAUNCH_COUNT - before == n + 1     # + the CPU index
+            assert idx.stats.searches == searches + 1
+        else:
+            for x in (cpu, idx):
+                x._rotate()
+        _assert_state_equal(_index_state(idx), _index_state(cpu), step)
+        for k, dev in enumerate(devices):
+            dev = torch.device(dev)
+            for parts in (idx._bits, idx._valid, idx._counters):
+                assert parts[k].device.type == dev.type
+                assert dev.index is None or parts[k].device == dev
+            assert idx._wear_states[k].window_writes.device == parts[k].device
+    assert cpu.stats.admissions and cpu.stats.rotations and on_card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane_format", ["int8", "packed8"])
+@pytest.mark.parametrize("devices", [("cuda:0",) * 2, ("cuda:0",) * 4,
+                                     ("cuda:0", "cpu", "cuda:0", "cpu")])
+def test_partitioned_index_on_card_matches_cpu(devices, plane_format):
+    """Phase 3c (a)'s partitioned indexes on one card: several partitions
+    on cuda:0, and a mixed list whose boundary exchange moves sets
+    between the card and the CPU (the CPU partitions run the plain
+    version)."""
+    _needs_card()
+    _partitioned_schedule(devices, plane_format)
+
+
+def _needs_two_cards():
+    _needs_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane_format", ["int8", "packed8"])
+def test_partitions_on_two_cards_match_cpu(plane_format):
+    """An index over ``("cuda:0", "cuda:1")``: partition 1 launches on
+    cuda:1 while cuda:0 is current (the launch device guard), and the
+    boundary exchange copies sets between the cards; equal to the CPU."""
+    _needs_two_cards()
+    with torch.cuda.device(0):
+        _partitioned_schedule(("cuda:0", "cuda:1"), plane_format)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_the_operands_card():
+    """Each wrapper launches on its operands' card, not the current one:
+    all four kernels on cuda:1 with cuda:0 current, against their plain
+    versions."""
+    _needs_two_cards()
+    from repro_torch.kernels.hopscotch import ops as hop
+    from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
+    from repro_torch.kernels.string_match import ops as sm
+    from repro_torch.kernels.string_match.ref import string_match_plain
+    operands, bq = _operands(np.random.default_rng(3), 8, 32, 512, 96, False)
+    dev1 = torch.device("cuda:1")
+    with torch.cuda.device(0):
+        on1 = [t.to(dev1) for t in operands]
+        got = ops.xam_search_multiset_device(*on1, block_q=bq)
+        assert got.device == dev1
+        assert torch.equal(got.cpu(), xam_search_multiset_plain(
+            *[t.cpu() for t in operands], block_q=bq))
+        keys, data = on1[0][:5], on1[2][0]
+        masks = torch.ones_like(keys)
+        flat = ops.xam_search_device(keys, data, masks)
+        assert torch.equal(flat.cpu(), ops.xam_search_device(
+            keys.cpu(), data.cpu(), masks.cpu()))
+        rng = np.random.default_rng(4)
+        lo, hi = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 1 << 10,
+                                                dtype=np.int64).astype(
+                      np.int32)) for _ in range(2))
+        homes = torch.from_numpy(rng.integers(0, 1 << 10, 64).astype(
+            np.int32))
+        q_lo, q_hi = lo[homes.long()], hi[homes.long()]
+        args = (lo, hi, homes, q_lo, q_hi)
+        got = hop.hopscotch_lookup_device(*[a.to(dev1) for a in args],
+                                          window=4)
+        assert torch.equal(got.cpu(), hopscotch_lookup_plain(*args, 4))
+        text = torch.from_numpy(rng.integers(0, 4, 5000).astype(np.uint8))
+        pattern = text[100:103].clone()
+        got = sm.string_match(text.to(dev1), pattern.to(dev1))
+        assert torch.equal(got.cpu(), string_match_plain(text, pattern))
+        torch.cuda.synchronize(dev1)
 
 
 @pytest.fixture

@@ -199,6 +199,35 @@ def test_trace_matches_reference(baseline_grids, name):
     _assert_results_equal(tres[(name, tname)], got, name)
 
 
+@pytest.mark.parametrize("devices,runs", [
+    (("cpu", "cpu"), [1, 1, 2, 2]),     # each family split in two blocks
+    (("cpu",) * 3, [2, 4]),             # 3 divides neither: unsharded
+])
+def test_grid_over_devices_matches_unsharded(baseline_grids, monkeypatch,
+                                             devices, runs):
+    """``simulate_grid(devices=...)``: a family whose lane count divides
+    the device count runs as contiguous blocks, one run each; one that
+    does not runs unsharded on the first device.  Either way every
+    result and final state equals the unsharded run's and the
+    reference's ``simulate_grid``."""
+    trace_list, (jres, jst), (tres, tst) = baseline_grids
+    names = ["d_cache", "monarch_m3", "monarch_m4"]
+    lanes = []
+    run = ts.run_family
+    monkeypatch.setattr(ts, "run_family", lambda shape, wear_on, dyn, a, w: (
+        lanes.append(a.shape[0]), run(shape, wear_on, dyn, a, w))[1])
+    cfgs = {n: ts.baseline_configs(512)[n] for n in names}
+    got, got_st = ts.simulate_grid(cfgs, trace_list, return_state=True,
+                                   device="cpu", devices=devices)
+    assert lanes == runs
+    assert set(got) == {(n, t) for n in names for t, _, _ in trace_list}
+    for key in got:
+        _assert_results_equal(tres[key], got[key], key)
+        _assert_results_equal(jres[key], got[key], key)
+        assert_tree_equal(tst[key], got_st[key], str(key))
+        assert_tree_equal(jst[key], got_st[key], str(key))
+
+
 # ---------------------------------------------------------------------------
 # The Fig. 11 knobs: t_MWW locks at 512 blocks, rotations at 4096.
 # ---------------------------------------------------------------------------
