@@ -112,6 +112,28 @@ code 1) on failure:
    a rerun to 64 steps that restores step 60.  Temporary checkpoint
    directories are removed.  The training path launches none of the
    four kernels.
+3f. Training over a ``torch.distributed`` mesh.  Phase 3e's state is
+   freed first and the card's allocated memory must be back to its level
+   before phase 3.  Every part runs two ranks on ``cuda:0`` (a gloo group:
+   NCCL refuses two ranks on one device), each this script spawned as a
+   child process (``--mesh-child``); a failed or hung child fails the
+   script.  (a) Which collectives the group runs on the card's tensors:
+   raw c10d calls and the DTensor redistributions they carry, each
+   checked by value or its error recorded; the two that kill the process
+   on the card's torch (the functional all-gather, so DTensor's Shard ->
+   Replicate) run in pairs of their own, their exit codes recorded.  So
+   no model parallelism runs on one card.  (b) zamba2-2.7b at full width
+   and 12 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
+   tokens (one row a rank): rank 0 first runs the one-process step of the
+   same seed and batch on the card; then ``init_state`` places the state
+   over the mesh and one step runs; the loss within 1e-3, the gradient
+   norm within 2e-2 and lr within 1e-6 of the one-process step, the same
+   on both ranks, every gathered leaf held as
+   ``tests/test_torch_mesh_train.py`` holds it (params within ``2 lr (1
+   + wd |p0|) + 1e-7``, m and v within 5e-2 and 1e-1 relative L2); the
+   placed state saved on both ranks and restored by rank 0 bit for bit;
+   each rank's collectives and their input bytes (a dispatch mode over
+   the first step), both steps' seconds and its peak memory.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -2025,6 +2047,424 @@ def train_phase(np, torch, smi: str, base_bytes: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: training over a torch.distributed mesh — two ranks on cuda:0.
+# ---------------------------------------------------------------------------
+
+MESH_CHILD = "--mesh-child"    # argv[1] of a rank this script spawns
+MESH_DEV = "cuda:0"            # both ranks share the one card
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 480
+MESH_BATCH, MESH_SEQ, MESH_SEED = 2, 512, 13
+#: (b): zamba2-2.7b at full width and a depth at which two float32 states
+#: fit one card beside the one-process step, on a (2, 1) mesh
+MESH_ARCH, MESH_LAYERS, MESH_SHAPE = "zamba2-2.7b", 12, (2, 1)
+#: the collectives the probe runs on a two-rank gloo group of cuda:0
+#: tensors: raw c10d calls, then the DTensor redistributions they carry
+PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
+          "reduce_scatter_tensor", "all_to_all_single", "barrier",
+          "all_gather_into_tensor_of_a_row", "dtensor_partial_to_replicate",
+          "dtensor_partial_to_shard", "dtensor_shard0_to_shard1")
+#: probes that kill both ranks with SIGSEGV on the card's torch (2.11,
+#: ROADMAP Queue 3 item 18): the functional all-gather DTensor's Shard ->
+#: Replicate runs, so no all-gather over a mesh dimension, and no model
+#: parallelism, runs on one card.  Each runs in a pair of its own.
+PROBES_FATAL = ("functional_all_gather", "dtensor_shard_to_replicate")
+#: what (b) needs: the gradient all-reduce (a Partial -> Replicate)
+MESH_NEEDS = ("all_reduce", "dtensor_partial_to_replicate")
+
+
+def start_ranks(kind: str, workdir: str) -> list:
+    """MESH_WORLD child processes running ``kind`` (this script with
+    ``MESH_CHILD kind rank port workdir``); returns ``(process, log)``
+    pairs."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ranks = []
+    for r in range(MESH_WORLD):
+        log_path = pathlib.Path(workdir) / f"{kind}{r}.log"
+        with open(log_path, "w") as log_f:
+            ranks.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), MESH_CHILD,
+                 kind, str(r), str(port), workdir],
+                stdout=log_f, stderr=subprocess.STDOUT), log_path))
+    return ranks
+
+
+def wait_ranks(ranks: list) -> None:
+    """Wait for every child until MESH_TIMEOUT_S; kill what is left."""
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p, _ in ranks:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _ in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def result_of(kind: str, workdir: str, r: int) -> dict:
+    return json.loads((pathlib.Path(workdir) / f"{kind}{r}.json")
+                      .read_text())
+
+
+def spawn_ranks(kind: str, workdir: str) -> list:
+    """Run ``kind`` on MESH_WORLD ranks; a failed or hung child fails the
+    phase.  Returns each rank's JSON result."""
+    ranks = start_ranks(kind, workdir)
+    wait_ranks(ranks)
+    for r, (p, log_path) in enumerate(ranks):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 3f {kind} rank {r} exited "
+                                 f"{p.returncode}:\n"
+                                 f"{log_path.read_text()[-6000:]}")
+    return [result_of(kind, workdir, r) for r in range(MESH_WORLD)]
+
+
+def probe_collectives(workdir: str) -> dict:
+    """(a) PROBES one after another on one pair of ranks, and each of
+    PROBES_FATAL on a pair of its own, all pairs at once: probe name ->
+    "ok", "wrong values", the error's first line, or the exit codes of
+    ranks that died."""
+    pairs = {f"probe:{name}": (name,) for name in PROBES_FATAL}
+    pairs["probe"] = PROBES
+    ranks_of = {kind: start_ranks(kind, workdir) for kind in pairs}
+    for ranks in ranks_of.values():
+        wait_ranks(ranks)
+    out = {}
+    for kind, names in pairs.items():
+        codes = [p.returncode for p, _ in ranks_of[kind]]
+        got = [None if codes[r] else result_of(kind, workdir, r)
+               for r in range(MESH_WORLD)]
+        for name in names:
+            if any(codes):
+                out[name] = f"rank exit codes {codes}"
+            elif got[0][name] != got[1][name]:
+                out[name] = f"ranks differ: {got[0][name]}, {got[1][name]}"
+            else:
+                out[name] = got[0][name]
+    return out
+
+
+def join_group(torch, rank: int, port: int) -> None:
+    import datetime
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=MESH_WORLD, timeout=datetime.timedelta(seconds=300))
+
+
+def probe_child(np, torch, rank: int, port: int, names: list) -> dict:
+    """(a) Probes of a two-rank gloo group on tensors of the one card, in
+    turn: each one's values checked, or its error's first line."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dist = torch.distributed
+    join_group(torch, rank, port)
+    dev = torch.device(MESH_DEV)
+    ar = lambda *a: torch.arange(*a, dtype=torch.float32, device=dev)
+    x = ar(4) + 4 * rank
+    full = ar(8).reshape(2, 4)
+    dm = init_device_mesh(dev.type, (MESH_WORLD,), mesh_dim_names=("data",))
+
+    def redistribute(local, src, dst):
+        return DTensor.from_local(local, dm, [src], run_check=False) \
+            .redistribute(dm, [dst]).to_local()
+
+    def all_reduce():
+        t = x.clone()
+        dist.all_reduce(t)
+        return t, ar(4) * 2 + 4
+
+    def broadcast():
+        t = x.clone()
+        dist.broadcast(t, src=0)
+        return t, ar(4)
+
+    def all_gather_into_tensor():
+        t = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(t, x)
+        return t, ar(8)
+
+    def all_gather():
+        ts = [torch.empty(4, device=dev) for _ in range(MESH_WORLD)]
+        dist.all_gather(ts, x)
+        return torch.cat(ts), ar(8)
+
+    def reduce_scatter_tensor():
+        t = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(t, ar(8) + rank)
+        return t, (ar(8) * 2 + 1)[4 * rank:4 * rank + 4]
+
+    def all_to_all_single():
+        t = torch.empty(8, device=dev)
+        dist.all_to_all_single(t, ar(8) + 8 * rank)
+        return t, torch.cat([ar(4) + 4 * rank, ar(4) + 4 * rank + 8])
+
+    def barrier():
+        dist.barrier()
+        return x, x
+
+    def all_gather_into_tensor_of_a_row():       # DTensor's operand
+        t = torch.empty(2, 4, device=dev)
+        dist.all_gather_into_tensor(t, full[rank:rank + 1])
+        return t, full
+
+    def functional_all_gather():                 # DTensor's call
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.all_gather_tensor(full[rank:rank + 1], 0,
+                                        dist.group.WORLD), full
+
+    def dtensor_shard_to_replicate():
+        return redistribute(full[rank:rank + 1], Shard(0), Replicate()), full
+
+    def dtensor_partial_to_replicate():
+        return redistribute(full.clone(), Partial(), Replicate()), full * 2
+
+    def dtensor_partial_to_shard():
+        return (redistribute(full.clone(), Partial(), Shard(0)),
+                full[rank:rank + 1] * 2)
+
+    def dtensor_shard0_to_shard1():
+        return (redistribute(full[rank:rank + 1], Shard(0), Shard(1)),
+                full[:, 2 * rank:2 * rank + 2])
+
+    probes, out = locals(), {}
+    for name in names:
+        try:
+            got, want = probes[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok" if torch.equal(got, want) else "wrong values"
+        except Exception as e:       # the answer is what the group refuses
+            out[name] = (f"{type(e).__name__}: "
+                         f"{str(e).strip().splitlines()[0][:160]}")
+    dist.destroy_process_group()
+    return out
+
+
+class CollectiveBytes:
+    """Counts the functional collectives DTensor issues (the ops of
+    ``torch.ops._c10d_functional``) and the bytes of each one's input on
+    this rank, as a dispatch mode over a step."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counts, nbytes = {}, {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" and \
+                        name not in ("wait_tensor", "_wrap_tensor_autograd"):
+                    t = args[0][0] if isinstance(args[0], (list, tuple)) \
+                        else args[0]
+                    counts[name] = counts.get(name, 0) + 1
+                    nbytes[name] = nbytes.get(name, 0) + \
+                        t.numel() * t.element_size()
+                return func(*args, **(kwargs or {}))
+
+        self.mode, self.counts, self.nbytes = Mode(), counts, nbytes
+
+
+def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
+    """(b) One rank.  Rank 0 first runs the one-process step of the same
+    configuration, seed and global batch on the card (plain tensors) and
+    keeps its metrics, the state after it and the initial params on the
+    host, then frees the card.  Both ranks then join the group,
+    ``init_state`` places the state over the mesh, and one step runs on
+    the placed global batch (its collectives counted); each leaf gathered
+    is held against the one-process state; the placed state is saved on
+    both ranks and rank 0 restores it bit for bit; a second step is
+    timed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.dist import checkpoint, sharding
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.pytree import tree_paths
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step
+
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+    dev = torch.device(MESH_DEV)
+    ocfg = opt.OptConfig()
+    dcfg = pipeline.DataConfig(cfg.vocab_size, MESH_SEQ, MESH_BATCH,
+                               seed=MESH_SEED)
+    one = None
+    if rank == 0:
+        state = step.init_state(MESH_SEED, cfg, device=dev)
+        p0 = {p: v.cpu() for p, v in tree_paths(state["params"])}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step.make_train_step(cfg, ocfg)(state,
+                                                   pipeline.batch_at(dcfg, 0))
+        torch.cuda.synchronize()
+        one = {"seconds": time.perf_counter() - t0,
+               "metrics": {k: float(v) for k, v in m.items()},
+               "state": {p: v.cpu() for p, v in tree_paths(state)}}
+        del state, m
+        free_card(torch)
+    join_group(torch, rank, port)
+    mesh = Mesh(("data", "model"), MESH_SHAPE)
+    dm = device_mesh(mesh, dev.type)
+    torch.cuda.reset_peak_memory_stats()
+
+    def placed_batch(i):
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipeline.batch_at(dcfg, i).items()}
+        return sharding.place(b, sharding.batch_specs(b, dm), dm)
+
+    state = step.init_state(MESH_SEED, cfg, device=dev, device_mesh=dm)
+    step_fn = step.make_train_step(cfg, ocfg)
+    comms = CollectiveBytes(torch)
+    batch = placed_batch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with comms.mode:
+        state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in m.items()}
+    out = {"rank": rank, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+           "layers": cfg.n_layers, "metrics": metrics,
+           "first_step_s": first_s, "collectives": comms.counts,
+           "collective_bytes": comms.nbytes,
+           "params": sum(v.numel() for _, v in tree_paths(state["params"])),
+           "local_state_bytes": sum(
+               v.to_local().numel() * v.to_local().element_size()
+               for _, v in tree_paths(state))}
+    if rank == 0:
+        want = one["metrics"]
+        if abs(metrics["loss"] - want["loss"]) > 1e-3 * abs(want["loss"]) or \
+                abs(metrics["grad_norm"] - want["grad_norm"]) > \
+                2e-2 * want["grad_norm"] or \
+                abs(metrics["lr"] - want["lr"]) > 1e-6 * want["lr"]:
+            raise AssertionError(f"mesh step {metrics} against the "
+                                 f"one-process step {want}")
+        out.update(one_process_s=one["seconds"], one_process=want)
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0}
+    lr, wd = metrics["lr"], ocfg.weight_decay
+    for path, leaf in tree_paths(state):
+        full = leaf.full_tensor()                 # every rank joins
+        if rank != 0 or path == ("opt", "step"):
+            continue
+        ref = one["state"][path].to(dev)
+        name = path[1] if path[0] == "opt" else "params"
+        if name == "params":
+            reach = 2 * lr * (1 + wd * p0[path[1:]].to(dev).abs()) + 1e-7
+            err = float(((full - ref).abs() / reach).max())
+            limit = 1.0
+        else:
+            err = float(torch.linalg.vector_norm(full - ref) /
+                        torch.linalg.vector_norm(ref).clamp_min(1e-30))
+            limit = 5e-2 if name == "m" else 1e-1
+        if not err <= limit:
+            raise AssertionError(f"{'/'.join(path)}: {err} of its "
+                                 f"bound against the one-process step")
+        worst[name] = max(worst[name], err)
+    if rank == 0:
+        del one, p0
+        out["worst_against_one_process"] = worst
+    ckpt = str(pathlib.Path(workdir) / "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save(ckpt, 1, state)               # every rank
+    out["save_s"] = time.perf_counter() - t0
+    if rank == 0:
+        _, restored = checkpoint.restore_latest(ckpt, state)
+        restored = dict(tree_paths(restored))
+    for path, leaf in tree_paths(state):
+        full = leaf.full_tensor()
+        if rank == 0 and not torch.equal(restored.pop(path), full):
+            raise AssertionError(f"{'/'.join(path)}: the checkpoint saved "
+                                 "on two ranks is not restored bit for bit")
+    batch = placed_batch(1)
+    torch.distributed.barrier()                   # rank 0 compared last
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    loss2 = float(m["loss"])
+    torch.cuda.synchronize()
+    out.update(second_step_s=time.perf_counter() - t0, second_loss=loss2,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if not np.isfinite(loss2):
+        raise AssertionError(f"second step loss {loss2}")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def mesh_child(argv: list) -> int:
+    """A rank of phase 3f: ``kind rank port workdir``; writes its result
+    to ``workdir/{kind}{rank}.json``."""
+    import numpy as np
+    import torch
+    kind, rank, port, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(torch.device(MESH_DEV))
+    if kind.startswith("probe"):
+        out = probe_child(np, torch, rank, port,
+                          kind.split(":")[1:] or PROBES)
+    else:
+        out = train_child(np, torch, rank, port, workdir)
+    (pathlib.Path(workdir) / f"{kind}{rank}.json").write_text(
+        json.dumps(out))
+    return 0
+
+
+def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
+    """Phase 3f: free the card of phase 3e, then (a) the collective probe
+    and (b) the data-parallel zamba2-2.7b steps, each on two ranks of
+    ``cuda:0`` spawned as child processes."""
+    import shutil
+    import tempfile
+
+    left = free_card(torch)
+    log(f"phase 3f: {left / 1e9:.4f} GB allocated after phase 3e "
+        f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3e left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        probe = probe_collectives(tmp)
+        log(f"phase 3f (a) gloo on {MESH_DEV} tensors: {probe}")
+        if any(probe[name] != "ok" for name in MESH_NEEDS):
+            raise AssertionError(f"(b) needs {MESH_NEEDS}: {probe}")
+        ranks = spawn_ranks("dp", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"the ranks' metrics differ: "
+                             f"{[r['metrics'] for r in ranks]}")
+    r0 = ranks[0]
+    log(f"phase 3f (b) {MESH_ARCH} x{MESH_LAYERS} on {r0['mesh']}, "
+        f"{MESH_BATCH} x {MESH_SEQ}: loss {r0['metrics']['loss']:.6f} (one "
+        f"process {r0['one_process']['loss']:.6f}), grad norm "
+        f"{r0['metrics']['grad_norm']:.6f} "
+        f"({r0['one_process']['grad_norm']:.6f}); worst against one "
+        f"process {r0['worst_against_one_process']}; steps "
+        f"{[round(r['first_step_s'], 2) for r in ranks]} s cold, "
+        f"{[round(r['second_step_s'], 2) for r in ranks]} s warm (one "
+        f"process {r0['one_process_s']:.2f} s); save "
+        f"{[round(r['save_s'], 2) for r in ranks]} s, restored bit for "
+        f"bit; peak {[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB; "
+        f"collectives a rank {r0['collectives']}, "
+        f"{r0['collective_bytes']} bytes")
+    wall = time.perf_counter() - t0
+    log(f"phase 3f: {wall:.1f} s")
+    report = {"probe": probe, "data_parallel": ranks, "wall_s": wall,
+              "card": smi}
+    print(json.dumps({"mesh_training": report}), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 1: build every kernel library, all nvcc runs started together.
 # ---------------------------------------------------------------------------
 
@@ -3544,6 +3984,8 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         log(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
         return 2
+    if sys.argv[1:2] == [MESH_CHILD]:
+        return mesh_child(sys.argv[2:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps.stringmatch import make_corpus
 
@@ -3572,6 +4014,7 @@ def main() -> int:
     moe = moe_phase(np, torch, smi, base_bytes)
     ssm = ssm_phase(np, torch, smi, base_bytes)
     training = train_phase(np, torch, smi, base_bytes)
+    meshed = mesh_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -3674,7 +4117,7 @@ def main() -> int:
                       "resume_check": served["resume_check"],
                       "resume_check_shallow": shallow,
                       "gemma3": gemma, "qwen3_moe": moe, "ssm": ssm,
-                      "training": training,
+                      "training": training, "mesh_training": meshed,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "launch_layer": launch, "card": smi}), flush=True)

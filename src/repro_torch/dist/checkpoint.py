@@ -9,6 +9,12 @@ numbered in ``jax.tree.leaves`` order — dict keys sorted at every level
 WITHOUT a manifest is an unfinished writer crash and is ignored by
 readers and eventually garbage-collected by writers: the rename is the
 publish.
+
+A state placed over a mesh (``DTensor`` leaves, ``dist/sharding.place``)
+is saved by every process: each leaf is gathered whole on every process
+in turn (``full_tensor``, a collective), process 0 writes it, and the
+files are the same topology-free files.  ``restore`` returns full
+tensors, which the caller places again over whatever mesh it has.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import shutil
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.pytree import tree_map_with_path, tree_paths
 
@@ -86,18 +93,28 @@ def save(root: str, step: int, state, keep_last: int | None = None,
 
     Only process 0 writes (``process_index`` defaults to the
     ``torch.distributed`` rank when a group is initialised, else 0); other
-    processes return the would-be path without touching disk."""
+    processes return the would-be path without touching disk.  A placed
+    state must be saved by every process of its mesh: each joins every
+    leaf's gather, and all return once process 0 has published."""
     if process_index is None:
         process_index = _rank()
     final = _step_dir(root, step)
+    leaves = [leaf for _, leaf in tree_paths(state)]
+    placed = any(isinstance(leaf, DTensor) for leaf in leaves)
     if process_index != 0:
+        for leaf in leaves:                  # join process 0's gathers
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()
+        if placed:
+            torch.distributed.barrier()
         return final
     os.makedirs(root, exist_ok=True)
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    leaves = [leaf for _, leaf in tree_paths(state)]
     for i, leaf in enumerate(leaves):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         if torch.is_tensor(leaf):
             leaf = _to_numpy(leaf.detach().cpu())
         with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
@@ -119,13 +136,16 @@ def save(root: str, step: int, state, keep_last: int | None = None,
     finally:
         os.close(dirfd)
     _gc(root, keep_last)
+    if placed:
+        torch.distributed.barrier()
     return final
 
 
 def restore(root: str, step: int, template, device=None):
-    """The checkpoint at ``step`` in ``template``'s structure: tensors with
-    each template leaf's dtype, on its device (or on ``device``).  Raises
-    ``ValueError`` when the leaf count, a shape or a dtype differs."""
+    """The checkpoint at ``step`` in ``template``'s structure: full
+    tensors with each template leaf's dtype and (global) shape, on its
+    device (or on ``device``).  Raises ``ValueError`` when the leaf count,
+    a shape or a dtype differs."""
     d = _step_dir(root, step)
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)

@@ -12,7 +12,9 @@ from the previous round is folded in BEFORE quantization and the new
 residual handed back, so the quantization error feeds forward instead of
 biasing the sum — over repeated reductions the accumulated estimate stays
 unbiased.  The sum is a ``torch.distributed.all_reduce`` over a process
-group, where the reference ``psum``s over a mesh axis.
+group, where the reference ``psum``s over a mesh axis: the group of one
+dimension of a ``DeviceMesh`` (``device_mesh.get_group("data")``) is
+that axis.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, pad: int, shape):
 def compressed_psum_leaf(g: torch.Tensor, residual: torch.Tensor,
                          group=None):
     """int8-compressed sum of one gradient leaf over the processes of
-    ``group`` (the default group when None).
+    ``group`` (the default group when None; a mesh axis's group, such as
+    ``device_mesh.get_group("data")``, sums over that axis).
 
     Returns (summed dequantized gradient, new residual).  The residual is
     per-process local state the caller threads through training steps.

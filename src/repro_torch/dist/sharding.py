@@ -15,18 +15,24 @@ One rule engine, three entry points:
 
 A spec is a plain tuple with one entry per dimension, each ``None``
 (replicated), an axis name, or a tuple of axis names: the entries of the
-reference's ``PartitionSpec``.  The rules read only a mesh's
-``axis_names`` and ``shape`` (``launch/mesh.py``'s :class:`Mesh`).
+reference's ``PartitionSpec``.  The rules read only a mesh's axis names
+and ``shape`` (``launch/mesh.py``'s :class:`Mesh`, or a ``DeviceMesh``).
 Every emitted spec passes through ``_guard``: an axis that does not
 evenly divide its dim is dropped to ``None`` (replicated), which is what
 lets the same rules serve a one-card host mesh and the 16x16 production
 mesh.
 
-The reference's ``to_named`` (specs to JAX ``NamedSharding``s) has no
-counterpart: placing tensors over a ``torch.distributed`` ``DeviceMesh``
-needs several processes and comes with ROADMAP.md Queue 1 item 7.
+The reference's ``to_named`` (specs to JAX ``NamedSharding``s) is
+:func:`placements`, and its ``device_put`` of a tree onto them is
+:func:`place`: one process runs per position of a ``torch.distributed``
+``DeviceMesh`` (``launch/mesh.device_mesh``) and holds its own block of
+each leaf as a ``DTensor``.  :func:`gather` is the reference's
+``np.asarray`` of a global array.
 """
 from __future__ import annotations
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.pytree import tree_map, tree_map_with_path
 
@@ -36,8 +42,14 @@ _COL_PARALLEL = {"wq", "wk", "wv", "w_up", "w_gate", "wx", "wz", "unembed"}
 _ROW_PARALLEL = {"wo", "w_down", "embed"}
 
 
+def _axis_names(mesh) -> tuple:
+    """The axis names of a :class:`~repro_torch.launch.mesh.Mesh` or of a
+    ``DeviceMesh``: the rules read either."""
+    return tuple(getattr(mesh, "axis_names", None) or mesh.mesh_dim_names)
+
+
 def _axis_sizes(mesh) -> dict:
-    return dict(zip(mesh.axis_names, mesh.shape))
+    return dict(zip(_axis_names(mesh), mesh.shape))
 
 
 def _shape(leaf) -> tuple:
@@ -49,7 +61,7 @@ def _shape(leaf) -> tuple:
 def dp_axes(mesh):
     """The data-parallel axis (or axes) of a mesh: ("pod", "data") on
     multi-pod meshes, "data" otherwise."""
-    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+    return ("pod", "data") if "pod" in _axis_names(mesh) else "data"
 
 
 def _guard(axes, shape, mesh) -> tuple:
@@ -145,3 +157,90 @@ def cache_specs(cache, mesh, seq_shard: bool = False):
                 axes[n_lead + 2] = "model"         # KV-head dim
         return _guard(axes, shape, mesh)
     return tree_map_with_path(one, cache)
+
+
+def placements(spec: tuple, mesh_dim_names) -> list:
+    """A spec as ``DTensor`` placements, one per mesh dimension: an axis
+    name shards the spec's dimension on that mesh dimension, a tuple of
+    axes shards it on each of theirs (in mesh order, so the block order
+    is the reference's ``P(("pod", "data"))``); other mesh dimensions
+    replicate."""
+    names = tuple(mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        group = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in group]
+        if idx != sorted(idx):
+            raise ValueError(f"axes {group} of dim {dim} are not in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def place_leaf(x: torch.Tensor, spec: tuple, device_mesh) -> DTensor:
+    """The full tensor ``x`` (the same on every process) as a ``DTensor``
+    placed by ``spec``: this process cuts its own block at its mesh
+    coordinate, with no collective; the block is a copy, so ``x`` can be
+    freed."""
+    pl = placements(spec, device_mesh.mesh_dim_names)
+    coord = device_mesh.get_coordinate()
+    block = x
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            block = block.chunk(device_mesh.size(i), p.dim)[coord[i]]
+    return DTensor.from_local(block.clone(), device_mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def place(tree, spec_tree, device_mesh):
+    """A tree of full tensors placed leaf by leaf by ``spec_tree`` (the
+    reference's ``device_put`` onto ``to_named(specs)``)."""
+    return tree_map(lambda x, s: place_leaf(x, s, device_mesh), tree,
+                    spec_tree)
+
+
+def constrain(t, axes):
+    """The reference's ``with_sharding_constraint``: a ``DTensor``
+    redistributed to the placements of ``_guard(axes)`` over its own
+    mesh; a plain tensor (one process, no mesh) as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    dm = t.device_mesh
+    spec = _guard(axes, t.shape, dm)
+    return t.redistribute(dm, placements(spec, dm.mesh_dim_names))
+
+
+def replicate_dim(t: DTensor, dim: int) -> DTensor:
+    """``t`` with every mesh dimension that shards its dimension ``dim``
+    redistributed to ``Replicate`` (an all-gather), the others kept."""
+    dim = dim % t.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def local_rows(fn, *tensors):
+    """``fn(*tensors)`` on each process's own batch rows.  Placed
+    tensors are redistributed to the batch placements of the first
+    (``Shard(0)`` where it shards dim 0, ``Replicate`` on every other mesh
+    dimension), ``fn`` runs on the local blocks, and its outputs (batch
+    leading) come back placed the same way, gradients flowing through.
+    ``fn`` must treat the rows independently.  Plain tensors go straight
+    to ``fn``."""
+    first = tensors[0]
+    if not isinstance(first, DTensor):
+        return fn(*tensors)
+    dm = first.device_mesh
+    rows = [p if p == Shard(0) else Replicate() for p in first.placements]
+    out = fn(*(t.redistribute(dm, rows).to_local() for t in tensors))
+    return tuple(DTensor.from_local(o, dm, rows, run_check=False)
+                 for o in out)
+
+
+def gather(tree):
+    """Every ``DTensor`` leaf as its full tensor (a collective: every
+    process calls it), other leaves as they are."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)

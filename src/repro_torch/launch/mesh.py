@@ -6,11 +6,14 @@ of ``jax.sharding.Mesh``: the partition rules and the dry run read only
 its shape (``dist/sharding.py``, ``launch/dryrun.py``); the serving
 index's ``("sets",)`` mesh and the simulator's ``("grid",)`` mesh read its
 devices.  Like the reference these keep its single-controller design: one
-process drives a tuple of devices, one per partition.  A device may repeat
-(``("cpu",) * 4``, ``("cuda:0",) * 4``), which plays the role of the
-reference's forced host device count.  Like the reference's these are
-functions, never module-level constants, so importing this module touches
-no device.
+process drives a tuple of devices, one per partition.  Training over a
+``("data", "model")`` mesh is the exception: there one process runs per
+mesh position, and :func:`device_mesh` makes the ``torch.distributed``
+``DeviceMesh`` that ``dist/sharding.place`` places the state over.  A
+device may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``), which plays
+the role of the reference's forced host device count.  Like the
+reference's these are functions, never module-level constants, so
+importing this module touches no device.
 """
 from __future__ import annotations
 
@@ -56,10 +59,23 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(("data", "model"), (16, 16))
 
 
+def world_size() -> int:
+    """The ``torch.distributed`` world size, 1 without an initialised
+    process group."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def make_host_mesh(n_devices: int | None = None) -> Mesh:
-    """``(n, 1)`` ``("data", "model")`` over this host's ``n`` visible CUDA
-    cards.  Without a card it raises unless the caller names
-    ``n_devices``."""
+    """``(n, 1)`` ``("data", "model")``: with an initialised process group
+    over its ``world_size`` processes, one per mesh position (the
+    reference's ``len(jax.devices())``); without one over this host's
+    ``n`` visible CUDA cards, raising without a card unless the caller
+    names ``n_devices``."""
+    if n_devices is None and world_size() > 1:
+        n_devices = world_size()
     if n_devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is visible; pass n_devices "
@@ -68,6 +84,27 @@ def make_host_mesh(n_devices: int | None = None) -> Mesh:
     if n_devices < 1:
         raise ValueError(f"n_devices must be at least 1, got {n_devices}")
     return Mesh(("data", "model"), (n_devices, 1))
+
+
+def device_mesh(mesh: Mesh, device_type: str):
+    """``mesh`` as a ``torch.distributed`` ``DeviceMesh`` of
+    ``device_type`` over the processes of the default group, one per mesh
+    position in row-major order; None for a one-position mesh in a
+    process without a group (the one-process path, plain tensors).
+    Raises, as the reference's production mesh does, unless the world
+    has exactly ``mesh.size`` processes."""
+    have = world_size()
+    if have != mesh.size:
+        raise RuntimeError(f"need {mesh.size} devices for mesh "
+                           f"{mesh.shape}, have {have} — launch "
+                           f"{mesh.size} processes (torchrun "
+                           f"--nproc-per-node)")
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, mesh.shape,
+                            mesh_dim_names=mesh.axis_names)
 
 
 def default_devices(device: str | torch.device = "cuda") -> tuple:

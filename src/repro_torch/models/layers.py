@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 
 DTYPE = torch.bfloat16
 NEG_INF = -2.0 ** 30
@@ -172,18 +174,31 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     return out.to(q.dtype)
 
 
+def _seq_shard(t: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """With ``cfg.attn_seq_shard`` (the data axes), pin (B, S, ...)
+    activations placed over a mesh to (dp, "model", None, ...), so the
+    attention contractions keep whole heads (no float32 logits summed
+    over ``model``) at the cost of gathering KV chunks over ``model``.
+    A plain tensor (one process) is returned as it is."""
+    axes = tuple(cfg.attn_seq_shard or ())
+    if not axes:
+        return t
+    return sharding.constrain(t, (axes, "model"))
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor, *, local: bool,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """Self-attention over x (B, S, D); ``local`` masks to the sliding
     window."""
     q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _seq_shard(q, cfg), _seq_shard(k, cfg), _seq_shard(v, cfg)
     out = chunked_attention(
         q, k, v, causal=cfg.causal and not cfg.encoder_only,
         window=cfg.sliding_window if local else 0,
         softcap=cfg.logit_softcap, q_offset=0, kv_chunk=kv_chunk)
     b, s = out.shape[:2]
-    return out.reshape(b, s, -1) @ params["wo"]
+    return _seq_shard(out.reshape(b, s, -1) @ params["wo"], cfg)
 
 
 def _decode_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
@@ -269,7 +284,13 @@ def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        # placed over a mesh: the embedding op, whose rules DTensor has in
+        # every version (its index_put rule, indexing's backward, fails in
+        # some); the same rows
+        return F.embedding(tokens, table)
+    return table[tokens]
 
 
 #: Vocabulary columns per unembedding contraction: the float32 copy of
@@ -286,6 +307,10 @@ def unembed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = params["embed"].T
     xf = x.float()
+    if isinstance(w, DTensor):
+        # placed over a mesh: one contraction, the vocabulary sharded as
+        # the weight is (a slice of a sharded column would gather it)
+        return xf @ w.float()
     v = w.shape[1]
     out = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
                       device=x.device)
@@ -298,6 +323,10 @@ def _chunk_nll(params: dict, xc: torch.Tensor,
                lc: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of one chunk's labels >= 0."""
     logits = unembed_logits(params, xc)                     # (B, C, V)
+    if isinstance(logits, DTensor):
+        # DTensor's vocab-parallel gather (a masked partial) fails to
+        # reduce a 3-D gather: the chunk's logits are gathered whole
+        logits = sharding.replicate_dim(logits, -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
     return torch.where(lc >= 0, logz - gold, 0.0).sum()

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 DTYPE = layers.DTYPE
@@ -139,7 +140,10 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     """x: (B, S, C); w: (K, C) — causal per-channel conv, the taps added
     in order in float32, rounded to ``x``'s dtype once."""
     k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    # zeros cat before the sequence, not F.pad: a placed (DTensor) x keeps
+    # its placements, where DTensor's pad rule fails on some versions
+    zero = torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1)
+    xp = torch.cat([zero, x], dim=1)
     wf = w.float()
     acc = torch.zeros(x.shape, dtype=F32, device=x.device)
     for i in range(k):
@@ -277,6 +281,43 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, norm_w: torch.Tensor,
     return layers.rms_norm(g, norm_w).to(DTYPE)
 
 
+def _ssd_chunks(xhh, dtc, la, bb, cc):
+    """The SSD scan chunk by chunk from a zero state: the intra-chunk
+    (diagonal) and carried-state terms of y (B, C, L, H, P) float32, the
+    skip term not added, and the final state (B, H, P, N).  xhh: (B, C, L,
+    H, P); dtc, la: (B, C, L, H); bb, cc: (B, C, L, N) float32."""
+    bsz, n_chunks, chunk, h, p = xhh.shape
+    n = bb.shape[-1]
+    iota = torch.arange(chunk, device=xhh.device)
+    causal = (iota[:, None] >= iota[None, :])[None, :, :, None]
+    hstate = torch.zeros((bsz, h, p, n), dtype=F32, device=xhh.device)
+    ys = torch.empty((bsz, n_chunks, chunk, h, p), dtype=F32,
+                     device=xhh.device)
+    for ci in range(n_chunks):
+        xc = xhh[:, ci].float()                                  # (B,L,H,P)
+        d, bc, ccc = dtc[:, ci], bb[:, ci], cc[:, ci]
+        cs = torch.cumsum(la[:, ci], dim=1)                      # (B,L,H)
+        # intra-chunk term; exp(cs_i - cs_j) overflows above the
+        # diagonal, so the exponent is masked to -inf before the exp: the
+        # same values as masking exp's output, and a finite gradient
+        # (masking after the exp leaves 0 * inf = NaN in the backward
+        # pass once a chunk's decay passes e^88, as the reference's does)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]              # (B,L,L,H)
+        decay = torch.exp(torch.where(causal, seg, -torch.inf))
+        cb = torch.einsum("bin,bjn->bij", ccc, bc)
+        w = cb[..., None] * decay
+        y_diag = torch.einsum("bijh,bjhp->bihp", w, xc * d[..., None])
+        # inter-chunk term: the carried state, decayed
+        y_off = torch.einsum("bln,bhpn,blh->blhp", ccc, hstate,
+                             torch.exp(cs))
+        ys[:, ci] = y_diag + y_off
+        tail = torch.exp(cs[:, -1:, :] - cs)                     # to the end
+        new_state = hstate * torch.exp(cs[:, -1])[..., None, None]
+        hstate = new_state + torch.einsum("blh,bln,blhp->bhpn", tail * d,
+                                          bc, xc)
+    return ys, hstate
+
+
 def mamba2_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                  chunk: int = 256, return_state: bool = False,
                  fused: bool = False):
@@ -308,36 +349,13 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     la = log_a.reshape(bsz, n_chunks, chunk, h)
     bb = b_in.reshape(bsz, n_chunks, chunk, n).float()
     cc = c_in.reshape(bsz, n_chunks, chunk, n).float()
-    iota = torch.arange(chunk, device=x.device)
-    causal = (iota[:, None] >= iota[None, :])[None, :, :, None]
-    d_skip = params["d_skip"][None, None, :, None]
-
-    hstate = torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
-    ys = torch.empty((bsz, n_chunks, chunk, h, p), dtype=F32,
-                     device=x.device)
-    for ci in range(n_chunks):
-        xc = xhh[:, ci].float()                                  # (B,L,H,P)
-        d, bc, ccc = dtc[:, ci], bb[:, ci], cc[:, ci]
-        cs = torch.cumsum(la[:, ci], dim=1)                      # (B,L,H)
-        # intra-chunk term; exp(cs_i - cs_j) overflows above the
-        # diagonal, so the exponent is masked to -inf before the exp: the
-        # same values as masking exp's output, and a finite gradient
-        # (masking after the exp leaves 0 * inf = NaN in the backward
-        # pass once a chunk's decay passes e^88, as the reference's does)
-        seg = cs[:, :, None, :] - cs[:, None, :, :]              # (B,L,L,H)
-        decay = torch.exp(torch.where(causal, seg, -torch.inf))
-        cb = torch.einsum("bin,bjn->bij", ccc, bc)
-        w = cb[..., None] * decay
-        y_diag = torch.einsum("bijh,bjhp->bihp", w, xc * d[..., None])
-        # inter-chunk term: the carried state, decayed
-        y_off = torch.einsum("bln,bhpn,blh->blhp", ccc, hstate,
-                             torch.exp(cs))
-        ys[:, ci] = y_diag + y_off + xc * d_skip
-        tail = torch.exp(cs[:, -1:, :] - cs)                     # to the end
-        new_state = hstate * torch.exp(cs[:, -1])[..., None, None]
-        hstate = new_state + torch.einsum("blh,bln,blhp->bhpn", tail * d,
-                                          bc, xc)
-    y = ys.reshape(bsz, n_chunks * chunk, di)[:, :s]
+    # placed over a mesh, the chunk loop runs on each process's own batch
+    # rows (its rows are independent): DTensor has no sharding rule for
+    # aten.flip, cumsum's backward, in some versions
+    ys, hstate = sharding.local_rows(_ssd_chunks, xhh, dtc, la, bb, cc)
+    d_skip = params["d_skip"][None, None, None, :, None]
+    y = (ys + xhh.float() * d_skip).reshape(bsz, n_chunks * chunk, di)
+    y = y[:, :s]
     out = _gated_norm(y, z, params["norm_w"], fused) @ params["out_proj"]
     if return_state:
         return out, hstate, _conv_tail(xbc_raw, cfg.ssm_conv)

@@ -479,6 +479,9 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
 
         def attend(h):
             q, k, v = layers._qkv(p["attn"], h, cfg, positions)
+            q = layers._seq_shard(q, cfg)
+            k = layers._seq_shard(k, cfg)
+            v = layers._seq_shard(v, cfg)
             if prefix_kv is not None:
                 pk = _block(prefix_kv, key, g)
                 k_all = torch.cat([pk["k"].to(k.dtype), k], dim=1)

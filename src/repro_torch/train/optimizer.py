@@ -11,6 +11,10 @@ decay and places the bias corrections elsewhere: another function.)
 Leaves are updated IN PLACE under ``torch.no_grad()`` — the reference
 donates its state, so one copy of params, m and v is resident — and sums
 over leaves run in the reference's leaf order (dict keys sorted).
+Placed over a mesh (``DTensor`` leaves), each gradient is first
+redistributed to its parameter's placements (a data-parallel gradient
+arrives as a partial sum: this is the gradient all-reduce), and the
+global norm is over every shard.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.pytree import tree_map, tree_paths
+from repro_torch.pytree import tree_map, tree_map_with_path, tree_paths
 
 F32 = torch.float32
 
@@ -52,10 +58,14 @@ def schedule(cfg: OptConfig, step) -> torch.Tensor:
 def init_opt_state(params_fp32: dict) -> dict:
     """Zero float32 moments beside each master, and the int32 step."""
     zeros = lambda p: torch.zeros_like(p, dtype=F32)
-    dev = tree_paths(params_fp32)[0][1].device
+    first = tree_paths(params_fp32)[0][1]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):         # replicated over the mesh
+        step = DTensor.from_local(
+            step, first.device_mesh, [Replicate()] * first.device_mesh.ndim,
+            run_check=False)
     return {"m": tree_map(zeros, params_fp32),
-            "v": tree_map(zeros, params_fp32),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "v": tree_map(zeros, params_fp32), "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -89,6 +99,23 @@ def adamw_update(cfg: OptConfig, params: dict, opt_state: dict,
     """One AdamW step.  Returns ``(params, opt_state, metrics)`` with
     ``metrics = {"lr", "grad_norm"}``.  ``params`` and the moments are
     updated IN PLACE and returned; ``grads`` is not changed."""
+    with implicit_replication():
+        return _adamw_update(cfg, params, opt_state, grads)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` redistributed to ``p``'s placements when ``p`` is placed
+    (an in-place update takes no mixed placements)."""
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _adamw_update(cfg: OptConfig, params: dict, opt_state: dict,
+                  grads: dict):
+    p_of = dict(tree_paths(params))
+    grads = tree_map_with_path(lambda path, g: _placed_like(
+        g, p_of[path]), grads)
     grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)

@@ -11,11 +11,22 @@ So training computes with other dtypes than serving: a stacked group's
 stay float32, and Mamba-1's ``a_log`` is bf16 (float32 when serving).
 The step runs eagerly; the reference's ``jit`` with donated state is an
 in-place update here (``optimizer.adamw_update``).
+
+Over a mesh (one process per position, the state and the batch placed
+as ``DTensor``s by :func:`state_specs` and ``sharding.batch_specs``)
+every process runs the same step, PyTorch's counterpart of the
+reference's one GSPMD program: DTensor's sharding rules choose the
+collectives, as XLA's do there.  The step runs under DTensor's
+``implicit_replication``, so the plain tensors the model builds on its
+device (positions, masks, attention's running max) act as replicated
+operands.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -36,11 +47,14 @@ def cast_bf16(params: dict) -> dict:
 
 
 def init_state(seed_or_generator, cfg: ArchConfig,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               device_mesh=None) -> dict:
     """A fresh train state on ``device``: ``transformer.init_params`` (its
     bf16 and float32 leaves) widened to float32 masters, zero moments,
     step 0.  ``seed_or_generator`` is an int seed or a ``torch.Generator``
-    on ``device``."""
+    on ``device``.  With a ``device_mesh`` each master is placed by
+    :func:`state_specs` as it is widened (every process draws the same
+    parameters and keeps its block), and the moments are made placed."""
     dev = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
         params = transformer.init_params(cfg, generator=seed_or_generator,
@@ -48,7 +62,12 @@ def init_state(seed_or_generator, cfg: ArchConfig,
     else:
         params = transformer.init_params(cfg, seed=int(seed_or_generator),
                                          device=dev)
-    params = tree_map(lambda p: p.to(F32), params)
+    if device_mesh is None:
+        params = tree_map(lambda p: p.to(F32), params)
+    else:
+        specs = sharding.param_specs(params, device_mesh)
+        params = tree_map(lambda p, s: sharding.place_leaf(
+            p.to(F32), s, device_mesh), params, specs)
     return {"params": params, "opt": opt.init_opt_state(params)}
 
 
@@ -85,7 +104,13 @@ def state_from_numpy(tree: dict, cfg: ArchConfig,
 
 
 def _rows(batch: dict, lo: int, hi: int) -> dict:
-    return {k: v[lo:hi] for k, v in batch.items()}
+    """Rows ``lo:hi`` of the GLOBAL batch; a placed leaf is placed again
+    as it was (the slice may take rows that sat on other processes)."""
+    def rows(v):
+        if isinstance(v, DTensor):
+            return v[lo:hi].redistribute(v.device_mesh, v.placements)
+        return v[lo:hi]
+    return {k: rows(v) for k, v in batch.items()}
 
 
 def _value_and_grad(cfg: ArchConfig, params: dict, batch: dict):
@@ -94,7 +119,7 @@ def _value_and_grad(cfg: ArchConfig, params: dict, batch: dict):
     leaves = [p.detach().requires_grad_() for _, p in tree_paths(params)]
     it = iter(leaves)
     tracked = tree_map(lambda _: next(it), _sorted_like(params))
-    with torch.enable_grad():
+    with torch.enable_grad(), implicit_replication():
         loss = transformer.train_loss(cast_bf16(tracked), cfg, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss never reads (an audio model's token embedding) gets
@@ -135,14 +160,17 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = opt.OptConfig(),
     """``train_step(state, batch) -> (state, metrics)``:
     :func:`loss_and_grads`, then :func:`optimizer.adamw_update`, which
     updates the state's tensors in place.  ``metrics = {"loss", "lr",
-    "grad_norm"}``, float32 scalars on the state's device."""
+    "grad_norm"}``, plain float32 scalars on the state's device (on a
+    mesh the same on every process)."""
 
     def train_step(state: dict, batch: dict):
         loss, grads = loss_and_grads(cfg, state["params"], batch,
                                      microbatches)
         params, new_opt, metrics = opt.adamw_update(
             ocfg, state["params"], state["opt"], grads)
-        return {"params": params, "opt": new_opt}, dict(metrics, loss=loss)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in dict(metrics, loss=loss).items()}
+        return {"params": params, "opt": new_opt}, metrics
 
     return train_step
 

@@ -36,6 +36,7 @@ from repro.train import step as j_step
 from repro_torch import configs
 from repro_torch.data import pipeline
 from repro_torch.dist import checkpoint, compression, elastic, straggler
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.pytree import tree_map, tree_paths
 from repro_torch.train import step as train_step_mod
 from test_torch_train_grads import carry_state
@@ -267,7 +268,7 @@ def test_elastic_reshard_roundtrip(tmp_path):
     state = _tiny_state()
     d = str(tmp_path / "ckpt")
     checkpoint.save(d, 3, state, process_index=0)
-    step, restored = elastic.resume_elastic(d, state, "cpu",
+    step, restored = elastic.resume_elastic(d, state, make_host_mesh(1),
                                             run_dir=str(tmp_path))
     assert step == 3
     _assert_same(state, restored)
@@ -276,12 +277,13 @@ def test_elastic_reshard_roundtrip(tmp_path):
     assert set(event) == {"time_unix", "step", "restored", "n_devices",
                           "mesh_axes"}
     assert event["restored"] and event["step"] == 3
-    assert event["n_devices"] == 1 and event["mesh_axes"] == {"data": 1}
+    assert event["n_devices"] == 1
+    assert event["mesh_axes"] == {"data": 1, "model": 1}
 
 
 def test_elastic_resume_without_checkpoint(tmp_path):
     step, restored = elastic.resume_elastic(str(tmp_path / "none"),
-                                            _tiny_state(), "cpu")
+                                            _tiny_state(), make_host_mesh(1))
     assert (step, restored) == (0, None)
 
 

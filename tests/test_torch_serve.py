@@ -194,8 +194,9 @@ PORT_EXAMPLES = ("train_lm_torch", "quickstart_torch", "kv_store_torch",
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"] + [ROOT / "examples" / f"{name}.py"
-                                   for name in PORT_EXAMPLES]
+        ROOT / "chip_smoke.py",
+        ROOT / "tests" / "_torch_mesh_ranks.py"] + [
+        ROOT / "examples" / f"{name}.py" for name in PORT_EXAMPLES]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -370,8 +370,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
         t_step.init_state(0, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_launch.main(["--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t_launch.main(["--reduced", "--device", "cpu", "--seq-shard-attn"])
+
+
+def test_launch_seq_shard_attn_on_one_process():
+    """tests/test_examples_and_opts.py::test_seq_shard_train_step_still_
+    correct through the launcher: on a world of one (no mesh to shard
+    over) ``--seq-shard-attn`` gives the loss without it."""
+    argv = ["--reduced", "--device", "cpu", "--steps", "1", "--batch", "2",
+            "--seq", "32"]
+    _, plain = t_launch.main(argv)
+    _, sharded = t_launch.main(argv + ["--seq-shard-attn"])
+    np.testing.assert_allclose(sharded[0]["loss"], plain[0]["loss"],
+                               rtol=1e-5)
 
 
 def test_launch_train_runs_and_restores(tmp_path, capsys):
@@ -394,7 +404,7 @@ def test_launch_train_runs_and_restores(tmp_path, capsys):
               open(os.path.join(ckpt, "scale_events.jsonl"))]
     assert [e["restored"] for e in events] == [False, True]
     assert events[1]["step"] == 4 and events[1]["n_devices"] == 1
-    assert events[1]["mesh_axes"] == {"data": 1}
+    assert events[1]["mesh_axes"] == {"data": 1, "model": 1}
 
 
 def _run_example(*args):
