@@ -123,7 +123,7 @@ code 1) on failure:
    on the card's torch (the functional all-gather, so DTensor's Shard ->
    Replicate) run in pairs of their own, their exit codes recorded.  So
    no model parallelism runs on one card.  (b) zamba2-2.7b at full width
-   and 12 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
+   and 6 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
    tokens (one row a rank): rank 0 first runs the one-process step of the
    same seed and batch on the card; then ``init_state`` places the state
    over the mesh and one step runs; the loss within 1e-3, the gradient
@@ -132,8 +132,34 @@ code 1) on failure:
    ``tests/test_torch_mesh_train.py`` holds it (params within ``2 lr (1
    + wd |p0|) + 1e-7``, m and v within 5e-2 and 1e-1 relative L2); the
    placed state saved on both ranks and restored by rank 0 bit for bit;
-   each rank's collectives and their input bytes (a dispatch mode over
-   the first step), both steps' seconds and its peak memory.
+   each rank's collectives and their output bytes
+   (``roofline.analysis.CollectiveCounter`` over the first step), both
+   steps' seconds and its peak memory.
+3g. Serving over a ``torch.distributed`` mesh.  Phase 3f's ranks are
+   gone and the card's allocated memory must be back to its level before
+   phase 3.  Every part runs two ranks on ``cuda:0`` (gloo) under
+   ``python -m torch.distributed.run --standalone --nproc-per-node 2``,
+   each rank this script (``--torchrun-child``) calling the launcher.
+   (a) ``launch/serve.serve`` with phase 3's arguments and ``--mesh
+   host``: yi-9b at full width and depth placed over ``(2, 1)``, an index
+   replica a rank; both ranks' records equal; chunks, hits, resumed
+   chunks and admissions equal phase 3's one-process run; greedy tokens
+   under the margin rule with phase 3's top-2 gaps; a full prefill of the
+   last batch within phase 3's 48-layer ceilings of the one-process
+   logits; each rank's multi-set launches equal its searches; each
+   rank's collectives (output bytes), local parameter bytes and peak.
+   (b) ``launch/httpd.main --mesh host`` with qwen3-moe-30b-a3b at full
+   width and 8 of its 48 layers, ``--n-shards 4``: 8 requests of two
+   96-token rows (sharing a 48-token prefix) first through the edge's
+   request loop in this process, each request's rows served alone at
+   B = 1 with the batch's lookups, resume run and admissions (its top-2
+   gaps recorded), then through rank 0 of the mesh (rank 1 follows the
+   broadcast batches; each rank serves one row); chunks, hits, resumed
+   chunks and admissions equal, tokens under the margin rule; the loop
+   run again and at B = 2 are measured beside it; a SIGTERM to torchrun
+   drains both ranks.  (c) yi-9b on ``(1, 2)`` (model parallel) only if
+   phase 3f (a) found the functional all-gather working; else the phase
+   says why not.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -194,7 +220,8 @@ code 1) on failure:
    the median step time.
 9. The launch layer and the examples.  (a) ``launch.dryrun.run_cell`` of
    every cell of ``configs.all_cells()`` on the card's host mesh, the
-   steps run on ``meta`` tensors: one line per cell with its input bytes
+   steps run on ``meta`` tensors (layer groups extrapolated, exactly,
+   where a full trace would take over a second): one line per cell with its input bytes
    per device against the card's memory, its counted FLOPs,
    ``model_flops``, the roofline terms on ``h100-sxm`` and the
    bottleneck, the counting method and its seconds; a runnable cell that
@@ -218,7 +245,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -592,7 +621,8 @@ def serve_phase(np, torch) -> dict:
     args = serve.parse_args(SERVE_ARGV)
     ops.LAUNCH_COUNT = 0
     ops.ADMIT_LAUNCH_COUNT = 0
-    run = serve.serve(args)
+    gaps = RecordedGaps(np)                  # phase 3g's margin reference
+    run = serve.serve(args, on_logits=gaps.record)
     launches = ops.LAUNCH_COUNT
     admit_launches = ops.ADMIT_LAUNCH_COUNT
     cfg, idx, eng, recs = run.cfg, run.index, run.engine, run.records
@@ -687,7 +717,13 @@ def serve_phase(np, torch) -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("stage times: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    one = {"records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
+                        int(r.admitted), r.decoded.tolist()] for r in recs],
+           "gaps": [g.tolist() for g in gaps.per_request(8)],
+           "admissions": s.admissions, "seconds": run.seconds,
+           "logits_full_last": b}
     return {"launches": launches, "batches": len(recs), "times": times,
+            "one_process": one,
             "resume_check": {"max_abs_diff": d_res, "outside_tol": over(a, b),
                              "floor_max_abs_diff": d_floor,
                              "floor_outside_tol": over(rows, b),
@@ -2055,9 +2091,9 @@ MESH_DEV = "cuda:0"            # both ranks share the one card
 MESH_WORLD = 2
 MESH_TIMEOUT_S = 480
 MESH_BATCH, MESH_SEQ, MESH_SEED = 2, 512, 13
-#: (b): zamba2-2.7b at full width and a depth at which two float32 states
-#: fit one card beside the one-process step, on a (2, 1) mesh
-MESH_ARCH, MESH_LAYERS, MESH_SHAPE = "zamba2-2.7b", 12, (2, 1)
+#: (b): zamba2-2.7b at full width and one layer group (6 layers; 12 until
+#: phase 3g and 9 (d) needed the script's time), on a (2, 1) mesh
+MESH_ARCH, MESH_LAYERS, MESH_SHAPE = "zamba2-2.7b", 6, (2, 1)
 #: the collectives the probe runs on a two-rank gloo group of cuda:0
 #: tensors: raw c10d calls, then the DTensor redistributions they carry
 PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
@@ -2246,30 +2282,6 @@ def probe_child(np, torch, rank: int, port: int, names: list) -> dict:
     return out
 
 
-class CollectiveBytes:
-    """Counts the functional collectives DTensor issues (the ops of
-    ``torch.ops._c10d_functional``) and the bytes of each one's input on
-    this rank, as a dispatch mode over a step."""
-
-    def __init__(self, torch):
-        from torch.utils._python_dispatch import TorchDispatchMode
-        counts, nbytes = {}, {}
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                name = func.__name__.split(".")[0]
-                if func.namespace == "_c10d_functional" and \
-                        name not in ("wait_tensor", "_wrap_tensor_autograd"):
-                    t = args[0][0] if isinstance(args[0], (list, tuple)) \
-                        else args[0]
-                    counts[name] = counts.get(name, 0) + 1
-                    nbytes[name] = nbytes.get(name, 0) + \
-                        t.numel() * t.element_size()
-                return func(*args, **(kwargs or {}))
-
-        self.mode, self.counts, self.nbytes = Mode(), counts, nbytes
-
-
 def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
     """(b) One rank.  Rank 0 first runs the one-process step of the same
     configuration, seed and global batch on the card (plain tensors) and
@@ -2285,6 +2297,7 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
     from repro_torch.dist import checkpoint, sharding
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.pytree import tree_paths
+    from repro_torch.roofline.analysis import CollectiveCounter
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step
 
@@ -2319,11 +2332,11 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
 
     state = step.init_state(MESH_SEED, cfg, device=dev, device_mesh=dm)
     step_fn = step.make_train_step(cfg, ocfg)
-    comms = CollectiveBytes(torch)
+    comms = CollectiveCounter()
     batch = placed_batch(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with comms.mode:
+    with comms:
         state, m = step_fn(state, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -2461,6 +2474,440 @@ def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
     report = {"probe": probe, "data_parallel": ranks, "wall_s": wall,
               "card": smi}
     print(json.dumps({"mesh_training": report}), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: serving over a torch.distributed mesh, the launchers under
+# torchrun on two ranks of the card.
+# ---------------------------------------------------------------------------
+
+TORCHRUN_CHILD = "--torchrun-child"   # argv[1] of a rank torchrun starts
+#: (a): phase 3's launcher and requests on a (2, 1) mesh
+MESH_SERVE_ARGV = SERVE_ARGV + ["--mesh", "host"]
+#: (b): qwen3-moe-30b-a3b at full width and this depth behind the edge
+MESH_MOE_LAYERS = 8
+#: (b)'s requests are two rows each, one on each rank (data
+#: parallelism).  A rank computes its row as one process computes that
+#: row alone, so the tokens are held to a one-process request loop that
+#: serves each request's rows one at a time at B = 1, with the batch's
+#: lookups, resume run and admissions (:func:`edge_loop`).  A one-process
+#: loop at B = 2 runs other GEMM shapes, and at eight MoE layers of random
+#: bf16 weights that reroutes tokens past the margin rule; the phase
+#: measures and prints that difference, and the run-to-run spread of the
+#: B = 1 loop.
+MESH_EDGE_ROWS = 2
+MESH_EDGE_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--device", "cuda",
+                  "--host", "127.0.0.1", "--port", "0", "--prompt-len", "96",
+                  "--decode-tokens", "8", "--admit-after-reads", "0",
+                  "--n-shards", "4", "--n-workers", "1",
+                  "--batch-window-ms", "0"]
+
+
+class RecordedGaps:
+    """Every greedy step's top-1/top-2 logit gap, row by row: the margin
+    rule's reference.  :meth:`record` is the launchers' ``on_logits``
+    (called once per emitted token, before its argmax)."""
+
+    def __init__(self, np):
+        self.np, self.gaps = np, []
+
+    def record(self, logits) -> None:
+        self.gaps.append(top2_gap(self.np, logits.float().cpu().numpy()))
+
+    def take(self):
+        """The (B, steps) gaps recorded since the last take."""
+        g, self.gaps = self.gaps, []
+        return self.np.stack(g, axis=1)
+
+    def per_request(self, n_tokens: int) -> list:
+        """(B, n_tokens) gaps of each request, in serving order."""
+        g = self.gaps
+        return [self.np.stack(g[i:i + n_tokens], axis=1)
+                for i in range(0, len(g), n_tokens)]
+
+
+def edge_moe_config():
+    """qwen3-moe-30b-a3b at full width and MESH_MOE_LAYERS layers, the
+    config phase 3g (b) passes the edge."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                               n_layers=MESH_MOE_LAYERS)
+
+
+def start_torchrun(args: list, log_path) -> subprocess.Popen:
+    """``torch.distributed.run --standalone`` of MESH_WORLD ranks of this
+    script with ``TORCHRUN_CHILD args``, its output to ``log_path``."""
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={MESH_WORLD}", str(ROOT / "chip_smoke.py"),
+             TORCHRUN_CHILD, *args], stdout=log_f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+
+def serve_child(np, torch, workdir: str, shape=(MESH_WORLD, 1)) -> dict:
+    """(a) One rank: ``launch/serve.serve`` with MESH_SERVE_ARGV on a
+    ``("data", "model")`` mesh of ``shape`` (the placed model, the rank's
+    own index replica, the hit masks checked across the ranks), its
+    records, multi-set launches, collectives and peak memory; rank 0
+    also the gathered last-token logits of a full prefill of the last
+    batch."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.roofline.analysis import CollectiveCounter
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with CollectiveCounter() as comms:
+        run = serve.serve(serve.parse_args(MESH_SERVE_ARGV),
+                          mesh=Mesh(("data", "model"), shape))
+    launches = read_counts()["xam_search_multiset"]
+    idx, eng = run.index, run.engine
+    full = eng.prefill(run.batches[-1], None)
+    logits = sharding.full(full.state["logits"]).float().cpu().numpy()
+    if run.rank == 0:
+        np.save(pathlib.Path(workdir) / "logits.npy", logits)
+    out = {"rank": run.rank, "seconds": run.seconds,
+           "records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
+                        int(r.admitted), r.decoded.tolist()]
+                       for r in run.records],
+           "launches": launches, "searches": idx.stats.searches,
+           "admissions": idx.stats.admissions,
+           "resumed_chunks": eng.resumed_chunks,
+           "collectives": comms.counts, "collective_bytes": comms.nbytes,
+           "local_param_bytes": sum(
+               t.to_local().numel() * t.to_local().element_size()
+               for t in tree_leaves(run.params)),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def httpd_child(np, torch, workdir: str) -> dict:
+    """(b) One rank: ``launch/httpd.main`` with MESH_EDGE_ARGV and
+    ``--mesh host`` at MESH_MOE_LAYERS layers (process 0 binds the
+    socket), until the drain; its multi-set launches and peak memory."""
+    from repro_torch.launch import httpd
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    httpd.main(MESH_EDGE_ARGV + ["--mesh", "host"], cfg=edge_moe_config())
+    return {"rank": torch.distributed.get_rank(),
+            "launches": read_counts()["xam_search_multiset"],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def torchrun_child(argv: list) -> int:
+    """A rank torchrun started for phase 3g: ``kind workdir``; writes its
+    result to ``workdir/{kind}{rank}.json``."""
+    import numpy as np
+    import torch
+    kind, workdir = argv
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    children = {"serve": serve_child, "httpd": httpd_child,
+                "serve_mp": lambda *a: serve_child(*a, shape=(1, MESH_WORLD))}
+    out = children[kind](np, torch, workdir)
+    (pathlib.Path(workdir) / f"{kind}{out['rank']}.json").write_text(
+        json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def wait_torchrun(proc, log_path) -> str:
+    """Wait for a torchrun until MESH_TIMEOUT_S (kill it past that);
+    returns its output."""
+    try:
+        proc.wait(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return pathlib.Path(log_path).read_text()
+
+
+def mesh_serve_check(np, torch, one: dict, workdir: str,
+                     kind: str = "serve") -> dict:
+    """(a) ``launch/serve.py --mesh host`` under torchrun with phase 3's
+    arguments (``kind`` ``serve_mp``: the (1, 2) mesh of (c)): both
+    ranks' records equal; hits, resumed chunks and admissions phase 3's;
+    greedy tokens under the margin rule with phase 3's gaps; a full
+    prefill of the last batch within the 48-layer ceilings of phase 3's;
+    each rank launched the multi-set search once per lookup."""
+    log_path = pathlib.Path(workdir) / f"{kind}.log"
+    proc = start_torchrun([kind, workdir], log_path)
+    text = wait_torchrun(proc, log_path)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 3g {kind} torchrun exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    ranks = [result_of(kind, workdir, r) for r in range(MESH_WORLD)]
+    if any(ranks[r]["records"] != ranks[0]["records"]
+           for r in range(1, MESH_WORLD)):
+        raise AssertionError("the ranks' records differ")
+    got, want = ranks[0]["records"], one["records"]
+    if [g[:4] for g in got] != [w[:4] for w in want] or \
+            ranks[0]["admissions"] != one["admissions"]:
+        raise AssertionError(f"mesh records {[g[:4] for g in got]}, "
+                             f"admissions {ranks[0]['admissions']}; one "
+                             f"process {[w[:4] for w in want]}, "
+                             f"{one['admissions']}")
+    for g, w, gap in zip(got, want, one["gaps"]):
+        if not greedy_margin_agree(np.array(g[4]), np.array(w[4]),
+                                   np.array(gap)):
+            raise AssertionError(f"mesh tokens {g[4]} against {w[4]} "
+                                 f"(gaps {gap})")
+    a = np.load(pathlib.Path(workdir) / "logits.npy")
+    b = one["logits_full_last"]
+    d_max = float(np.abs(a - b).max())
+    outside = float((np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean())
+    if d_max > DEEP_MAX_ABS or outside > DEEP_MAX_OUTSIDE:
+        raise AssertionError(f"full prefill over the mesh against one "
+                             f"process: max |diff| {d_max}, {outside} "
+                             "outside rtol/atol")
+    for r in ranks:
+        if r["launches"] != r["searches"] or r["launches"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: {r['launches']} "
+                                 f"multi-set launches, {r['searches']} "
+                                 "searches")
+    tokens_equal = float(np.mean([np.array_equal(g[4], w[4])
+                                  for g, w in zip(got, want)]))
+    log(f"phase 3g {kind} yi-9b x48: records equal on both ranks "
+        f"and to phase 3 ({[g[:4] for g in got]}), requests' tokens equal "
+        f"{tokens_equal:.3f}; last batch full prefill max |diff| "
+        f"{d_max:.6f}, {outside:.5f} outside; serve loop "
+        f"{[round(r['seconds'], 2) for r in ranks]} s (one process "
+        f"{one['seconds']:.2f}); multi-set launches a rank "
+        f"{[r['launches'] for r in ranks]}; collectives a rank "
+        f"{ranks[0]['collectives']}, {ranks[0]['collective_bytes']} bytes; "
+        f"local params {[round(r['local_param_bytes'] / 1e9, 2) for r in ranks]}"
+        f" GB, peak {[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB")
+    return {"ranks": [{k: v for k, v in r.items() if k != "records"}
+                      for r in ranks], "tokens_equal": tokens_equal,
+            "prefill_max_abs_diff": d_max, "prefill_outside_tol": outside,
+            "one_process_s": one["seconds"]}
+
+
+def edge_requests(np, vocab: int, rows: int) -> list:
+    """phase 3b's requests with ``rows`` rows: 96 tokens a row sharing a
+    48-token prefix."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, vocab, 48)
+    return [np.concatenate([np.tile(prefix, (rows, 1)), rng.integers(
+        1, vocab, (rows, 48))], axis=1).astype(np.int32)
+        for _ in range(EDGE_REQUESTS)]
+
+
+def edge_loop(np, cfg, params, batches, rows_alone: bool):
+    """The edge's request loop in one process, with its index config
+    and inline admission, over ``batches``: whole batches, or
+    (``rows_alone``) each batch's rows prefilled and decoded one at a time
+    at B = 1 with the batch's common resume run, as each rank of a
+    data-parallel mesh computes them.  Returns (records, per-request
+    (B, decode) top-2 gaps, seconds)."""
+    from repro_torch.launch import httpd, serve
+    from repro_torch.serve.admit_queue import AdmitQueue
+    from repro_torch.serve.kv_index import KVSlabStore, MonarchKVIndex
+    from repro_torch.serve.resume import PrefillResult, PrefixResumeEngine
+
+    args = httpd.build_parser().parse_args(MESH_EDGE_ARGV)
+    idx = MonarchKVIndex(httpd.kv_config(args, True),
+                         slab_store=KVSlabStore(), device="cuda")
+    queue = AdmitQueue(idx, background=False)
+    gaps = RecordedGaps(np)
+    eng = PrefixResumeEngine(params, cfg,
+                             max_seq=args.prompt_len + args.decode_tokens,
+                             index=idx, decode_tokens=args.decode_tokens,
+                             device="cuda", on_logits=gaps.record)
+    per_request = []
+
+    def prefill_rows(toks, hits):
+        run = eng._resume_run(idx.fingerprints(toks), hits, toks.shape[1])
+        parts = []
+        for r in range(toks.shape[0]):
+            h = np.zeros_like(hits[r:r + 1])
+            h[:, :run] = True
+            parts.append(eng.prefill(toks[r:r + 1], h))
+        slabs = {}
+        for part in parts:                  # the batch's: first row wins
+            for fp, slab in part.slabs.items():
+                slabs.setdefault(fp, slab)
+        return PrefillResult(
+            state=[part.state for part in parts], slabs=slabs,
+            resumed_chunks=sum(part.resumed_chunks for part in parts),
+            computed_chunks=sum(part.computed_chunks for part in parts))
+
+    def decode_rows(toks, res):
+        out, row_gaps = [], []
+        for state in res.state:
+            out.append(eng.decode(state))
+            row_gaps.append(gaps.take())
+        per_request.append(np.concatenate(row_gaps, axis=0))
+        return np.concatenate(out, axis=0)
+
+    def decode_whole(toks, res):
+        out = eng.decode(res)
+        per_request.append(gaps.take())
+        return out
+
+    t0 = time.perf_counter()
+    if rows_alone:
+        recs = serve.run_request_loop(queue, batches, prefill_fn=prefill_rows,
+                                      decode_fn=decode_rows)
+    else:
+        recs = serve.run_request_loop(queue, batches, prefill_fn=eng.prefill,
+                                      decode_fn=decode_whole)
+    seconds = time.perf_counter() - t0
+    queue.close()
+    return recs, per_request, seconds
+
+
+def first_divergences(np, got, want, gaps) -> list:
+    """(request, row, step, the reference's top-2 gap) of each row's
+    first token that differs."""
+    out = []
+    for i, (g, w, gap) in enumerate(zip(got, want, gaps)):
+        for r in range(w.shape[0]):
+            t = np.flatnonzero(np.asarray(g[r]) != np.asarray(w[r]))
+            if t.size:
+                out.append((i, r, int(t[0]), round(float(gap[r, t[0]]), 4)))
+    return out
+
+
+def mesh_edge_check(np, torch, workdir: str) -> dict:
+    """(b) ``launch/httpd.py --mesh host`` under torchrun, qwen3-moe at
+    full width and MESH_MOE_LAYERS layers with ``--n-shards 4``: rank 0
+    answers EDGE_REQUESTS POSTs of MESH_EDGE_ROWS rows, one row a rank.
+    Chunks, hits, resumed chunks and admissions equal the one-process
+    loop that serves each row alone (:func:`edge_loop`), and the tokens
+    equal its under the margin rule (its gaps); then a SIGTERM to
+    torchrun drains both ranks.  Also measured, not held: the same loop
+    run again (its run-to-run spread) and the loop at B = 2."""
+    import signal
+
+    from repro_torch.models import transformer
+
+    cfg = edge_moe_config()
+    batches = edge_requests(np, cfg.vocab_size, MESH_EDGE_ROWS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    alone, alone_gaps, alone_s = edge_loop(np, cfg, params, batches, True)
+    again, _, _ = edge_loop(np, cfg, params, batches, True)
+    whole, whole_gaps, whole_s = edge_loop(np, cfg, params, batches, False)
+    del params
+    free_card(torch)
+    spread = first_divergences(np, [r.decoded for r in again],
+                               [r.decoded for r in alone], alone_gaps)
+    shape = first_divergences(np, [r.decoded for r in whole],
+                              [r.decoded for r in alone], alone_gaps)
+    log_path = pathlib.Path(workdir) / "httpd.log"
+    proc = start_torchrun(["httpd", workdir], log_path)
+    try:
+        port, deadline = None, time.monotonic() + MESH_TIMEOUT_S
+        while port is None and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                break
+            m = re.search(
+                r"listening on http://127.0.0.1:(\d+)",
+                log_path.read_text())
+            if m:
+                port = int(m[1])
+            else:
+                time.sleep(0.5)
+        if port is None:
+            raise AssertionError("phase 3g (b): the edge did not listen:\n"
+                                 + log_path.read_text()[-6000:])
+        t0 = time.perf_counter()
+        mesh = []
+        for t in batches:
+            status, doc = http_json("POST", "127.0.0.1", port,
+                                    "/v1/generate", {"tokens": t.tolist()})
+            if status != 200:
+                raise AssertionError(f"POST answered {status}: {doc}")
+            mesh.append(doc)
+        mesh_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+    finally:
+        text = wait_torchrun(proc, log_path)
+    if "[httpd] drained in" not in text or \
+            f"[httpd] rank 1 drained: {EDGE_REQUESTS} batches" not in text:
+        raise AssertionError(f"phase 3g (b): no drain of both ranks:\n"
+                             f"{text[-6000:]}")
+    ranks = [result_of("httpd", workdir, r) for r in range(MESH_WORLD)]
+    for g, w, gap in zip(mesh, alone, alone_gaps):
+        got = [g[k] for k in ("chunks", "hit_chunks", "resumed_chunks",
+                              "admitted")]
+        if got != [w.chunks, w.hit_chunks, w.resumed_chunks, w.admitted]:
+            raise AssertionError(f"mesh answer {g} against {w}")
+        if not greedy_margin_agree(np.array(g["tokens"]), w.decoded, gap):
+            raise AssertionError(f"mesh tokens {g['tokens']} against "
+                                 f"{w.decoded.tolist()} (gaps "
+                                 f"{gap.tolist()})")
+    if any(r["launches"] <= 0 for r in ranks):
+        raise AssertionError(f"a rank launched no multi-set search: {ranks}")
+    diverged = first_divergences(np, [np.array(g["tokens"]) for g in mesh],
+                                 [r.decoded for r in alone], alone_gaps)
+    equal = float(np.mean([np.array_equal(g["tokens"], w.decoded)
+                           for g, w in zip(mesh, alone)]))
+    log(f"phase 3g (b) qwen3-moe x{MESH_MOE_LAYERS} behind the edge on "
+        f"(2, 1), {MESH_EDGE_ROWS} rows a request: {EDGE_REQUESTS} requests "
+        f"answered by rank 0 in {mesh_s:.2f} s (one process, rows alone "
+        f"{alone_s:.2f} s, B = 2 {whole_s:.2f} s), hits "
+        f"{[g['hit_chunks'] for g in mesh]}, resumed "
+        f"{[g['resumed_chunks'] for g in mesh]}; requests' tokens equal to "
+        f"rows alone {equal:.3f}, first divergences (request, row, step, "
+        f"gap) {diverged}; rows alone run again: {spread}; at B = 2: "
+        f"{shape}; both ranks drained; multi-set launches a rank "
+        f"{[r['launches'] for r in ranks]}, peak "
+        f"{[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB")
+    return {"ranks": ranks, "mesh_s": mesh_s, "one_process_s": alone_s,
+            "one_process_b2_s": whole_s, "tokens_equal": equal,
+            "divergences": diverged, "run_to_run_divergences": spread,
+            "b2_divergences": shape}
+
+
+def mesh_serve_phase(np, torch, smi: str, base_bytes: int, one: dict,
+                     probe: dict) -> dict:
+    """Phase 3g: free the card of phase 3f, then (a) the serve launcher
+    and (b) the edge over a (2, 1) mesh of two ranks of ``cuda:0``, each
+    under torchrun; (c) model parallelism only where phase 3f (a) shows
+    that the functional all-gather runs."""
+    import shutil
+    import tempfile
+
+    left = free_card(torch)
+    log(f"phase 3g: {left / 1e9:.4f} GB allocated after phase 3f "
+        f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
+    if left > base_bytes + (64 << 20):
+        raise AssertionError(f"phase 3f left {left - base_bytes} bytes on "
+                             "the card")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    try:
+        served = mesh_serve_check(np, torch, one, tmp)
+        edge = mesh_edge_check(np, torch, tmp)
+        gathers = probe.get("functional_all_gather")
+        if gathers == "ok":
+            model_parallel = mesh_serve_check(np, torch, one, tmp,
+                                              "serve_mp")
+        else:
+            model_parallel = (
+                "not run: the functional all-gather (DTensor's Shard -> "
+                f"Replicate) gave {gathers!r} in phase 3f (a), so no "
+                "model-parallel mesh runs on one card (ROADMAP Queue 3 "
+                "item 18)")
+            log(f"phase 3g (c) yi-9b on (1, 2): {model_parallel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 3g: {wall:.1f} s")
+    report = {"serve": served, "edge": edge,
+              "model_parallel": model_parallel, "wall_s": wall,
+              "card": smi}
+    print(json.dumps({"mesh_serving": report}), flush=True)
     return report
 
 
@@ -3951,11 +4398,59 @@ def examples_check(torch) -> dict:
     return out
 
 
+#: (d): (arch, shape, mesh) dry-run on the production meshes' fake worlds
+PRODUCTION_DRYRUN = [(arch, shape, mesh) for mesh in ("single", "multi")
+                     for arch, shape in (("yi-9b", "train_4k"),
+                                         ("qwen3-moe-30b-a3b", "decode_32k"),
+                                         ("zamba2-2.7b", "long_500k"))] + [
+    ("yi-9b", "train_4k", "optsingle")]
+
+
+def production_dryrun(torch, out_dir: str) -> list:
+    """(d) ``launch.dryrun.run_cell`` of PRODUCTION_DRYRUN under the
+    card's torch: each step placed over a fake world of 256 or 512 ranks
+    (meta blocks) and counted as rank 0 runs it; one line each with its
+    input bytes, FLOPs and collective bytes by kind a device and the
+    bottleneck on ``h100-sxm``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import COLLECTIVES
+
+    rows = []
+    for arch, shape, mesh in PRODUCTION_DRYRUN:
+        rec = dryrun.run_cell(arch, shape, mesh, out_dir)
+        n_dev = 512 if mesh.endswith("multi") else 256
+        coll = rec["collectives"]
+        if rec["n_devices"] != n_dev or rec["machine"] != "h100-sxm" or \
+                not rec["flops"] > 0 or not coll["total"] > 0:
+            raise AssertionError(f"dryrun record {rec}")
+        inputs = rec["memory"]["analytic_input_bytes_per_device"]
+        log(f"dryrun {arch} x {shape} x {mesh}: inputs {inputs / 1e9:.3f} "
+            f"GB/device, {rec['flops'] / 1e12:.4f} TFLOPs/device "
+            f"({rec['flops_method']}), collectives/device "
+            + ", ".join(f"{k} {coll[k] / 1e9:.4f} GB" for k in COLLECTIVES)
+            + f", total {coll['total'] / 1e9:.4f} GB -> "
+            f"{rec['roofline']['bottleneck']} (compute "
+            f"{rec['roofline']['compute_s']:.4g} s, memory "
+            f"{rec['roofline']['memory_s']:.4g} s, collective "
+            f"{rec['roofline']['collective_s']:.4g} s); trace "
+            f"{rec['trace_s']:.1f} s")
+        rows.append({"arch": arch, "shape": shape, "mesh": mesh,
+                     "n_devices": n_dev, "input_bytes": inputs,
+                     "flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
+                     "flops_method": rec["flops_method"],
+                     "collectives": coll, "trace_s": rec["trace_s"],
+                     "bottleneck": rec["roofline"]["bottleneck"]})
+    return rows
+
+
 def launch_phase(torch, smi: str, training: dict) -> dict:
     """Phase 9: (a) the dry run of every cell, (b) the dry run against the
-    card's counted step, (c) the four examples."""
+    card's counted step, (c) the four examples, (d) the production
+    meshes' dry run."""
     import shutil
     import tempfile
+
+    from repro_torch.launch import dryrun
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
@@ -3970,8 +4465,18 @@ def launch_phase(torch, smi: str, training: dict) -> dict:
     t0 = time.perf_counter()
     examples = examples_check(torch)
     log(f"phase 9 (c): four examples in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_production_")
+    try:
+        t0 = time.perf_counter()
+        production = production_dryrun(torch, tmp)
+        production_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 9 (d): {len(production)} production cells in "
+        f"{production_s:.1f} s")
     return {"cells": cells, "cells_s": cells_s, "zamba2_train": vs_card,
-            "examples": examples, "card": smi}
+            "examples": examples, "production": production,
+            "production_s": production_s, "card": smi}
 
 
 def main() -> int:
@@ -3986,6 +4491,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == [MESH_CHILD]:
         return mesh_child(sys.argv[2:])
+    if sys.argv[1:2] == [TORCHRUN_CHILD]:
+        return torchrun_child(sys.argv[2:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps.stringmatch import make_corpus
 
@@ -4015,6 +4522,8 @@ def main() -> int:
     ssm = ssm_phase(np, torch, smi, base_bytes)
     training = train_phase(np, torch, smi, base_bytes)
     meshed = mesh_phase(np, torch, smi, base_bytes)
+    mesh_served = mesh_serve_phase(np, torch, smi, base_bytes,
+                                   served["one_process"], meshed["probe"])
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -4040,6 +4549,10 @@ def main() -> int:
     example_launches = {name: sum(e["launches"][name]
                                   for e in launch["examples"].values())
                         for name in read_counts()}
+    mesh_launches = {       # each rank's, counted in its own process
+        part: [r["launches"] for r in mesh_served[part]["ranks"]]
+        for part in ("serve", "edge", "model_parallel")
+        if isinstance(mesh_served[part], dict)}
 
     path_launches = {
         "xam_search_multiset": (serve_counts["xam_search_multiset"]
@@ -4048,6 +4561,7 @@ def main() -> int:
                                 + moe["edge"]["launches"]
                                 + moe["edge"]["replay_launches"]
                                 + sum(e["launches"] for e in ssm["edges"])
+                                + sum(map(sum, mesh_launches.values()))
                                 + example_launches["xam_search_multiset"]),
         "hopscotch_lookup": (table["point"]["launches"]["hopscotch_lookup"]
                              + example_launches["hopscotch_lookup"]),
@@ -4074,6 +4588,7 @@ def main() -> int:
         "launches_moe_replay_4_partitions": moe["edge"]["replay_launches"],
         "launches_ssm_edges": {e["arch"]: e["launches"]
                                for e in ssm["edges"]},
+        "launches_mesh_serving_per_rank": mesh_launches,
         "launches_per_request_batch": served["launches"] / served["batches"],
         "launches_autotune": tooling["sweep"]["launches_autotune"],
         "launches_examples": example_launches["xam_search_multiset"],
@@ -4118,6 +4633,7 @@ def main() -> int:
                       "resume_check_shallow": shallow,
                       "gemma3": gemma, "qwen3_moe": moe, "ssm": ssm,
                       "training": training, "mesh_training": meshed,
+                      "mesh_serving": mesh_served,
                       "hashtable": table, "stringmatch": strings,
                       "monarch_api": api, "simulator": simulated,
                       "launch_layer": launch, "card": smi}), flush=True)

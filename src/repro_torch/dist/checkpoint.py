@@ -12,7 +12,7 @@ publish.
 
 A state placed over a mesh (``DTensor`` leaves, ``dist/sharding.place``)
 is saved by every process: each leaf is gathered whole on every process
-in turn (``full_tensor``, a collective), process 0 writes it, and the
+in turn (``sharding.full``, raw collectives), process 0 writes it, and the
 files are the same topology-free files.  ``restore`` returns full
 tensors, which the caller places again over whatever mesh it has.
 """
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.dist import sharding
 from repro_torch.pytree import tree_map_with_path, tree_paths
 
 MANIFEST = "manifest.json"
@@ -104,7 +105,7 @@ def save(root: str, step: int, state, keep_last: int | None = None,
     if process_index != 0:
         for leaf in leaves:                  # join process 0's gathers
             if isinstance(leaf, DTensor):
-                leaf.full_tensor()
+                sharding.full(leaf)
         if placed:
             torch.distributed.barrier()
         return final
@@ -114,7 +115,7 @@ def save(root: str, step: int, state, keep_last: int | None = None,
     os.makedirs(tmp)
     for i, leaf in enumerate(leaves):
         if isinstance(leaf, DTensor):
-            leaf = leaf.full_tensor()
+            leaf = sharding.full(leaf)
         if torch.is_tensor(leaf):
             leaf = _to_numpy(leaf.detach().cpu())
         with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:

@@ -27,12 +27,20 @@ The reference's ``to_named`` (specs to JAX ``NamedSharding``s) is
 :func:`place`: one process runs per position of a ``torch.distributed``
 ``DeviceMesh`` (``launch/mesh.device_mesh``) and holds its own block of
 each leaf as a ``DTensor``.  :func:`gather` is the reference's
-``np.asarray`` of a global array.
+``np.asarray`` of a global array; it moves the blocks with the raw
+``torch.distributed`` collectives (``all_gather_into_tensor``,
+``all_reduce``), which every backend runs on card tensors, not with
+DTensor's functional all-gather, which a gloo group of CUDA tensors
+does not survive on some versions (ROADMAP Queue 3 item 18).
+:func:`zeros` makes a placed tensor from its blocks alone (a decode
+cache), :func:`vocab_rows` looks up the rows of a vocabulary-sharded
+table, and :func:`local_map` runs a function on each process's blocks.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.placement_types import Placement
 
 from repro_torch.pytree import tree_map, tree_map_with_path
 
@@ -181,17 +189,46 @@ def placements(spec: tuple, mesh_dim_names) -> list:
 def place_leaf(x: torch.Tensor, spec: tuple, device_mesh) -> DTensor:
     """The full tensor ``x`` (the same on every process) as a ``DTensor``
     placed by ``spec``: this process cuts its own block at its mesh
-    coordinate, with no collective; the block is a copy, so ``x`` can be
-    freed."""
+    coordinate, with no collective.  A block that is a part of ``x`` is a
+    copy, so ``x`` can be freed; where the placement cuts nothing the
+    block is ``x`` itself (no second copy of a replicated model)."""
     pl = placements(spec, device_mesh.mesh_dim_names)
     coord = device_mesh.get_coordinate()
     block = x
     for i, p in enumerate(pl):
         if isinstance(p, Shard):
             block = block.chunk(device_mesh.size(i), p.dim)[coord[i]]
-    return DTensor.from_local(block.clone(), device_mesh, pl,
-                              run_check=False, shape=x.shape,
-                              stride=x.stride())
+    if block is not x:
+        block = block.clone()
+    return DTensor.from_local(block, device_mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def block_bounds(shape, pl, device_mesh) -> tuple[list, list]:
+    """(offset, size) per dimension of this process's block of a tensor
+    of ``shape`` placed by ``pl`` (mesh dimensions in order, each
+    ``Shard`` splitting the block the earlier ones left, as ``place_leaf``
+    cuts it).  Raises for a split that is not even."""
+    off, size = [0] * len(shape), list(shape)
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            n = device_mesh.size(i)
+            if size[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split evenly over {n} processes")
+            size[p.dim] //= n
+            off[p.dim] += coord[i] * size[p.dim]
+    return off, size
+
+
+def zeros(shape, dtype, spec: tuple, device_mesh, device) -> DTensor:
+    """A zero tensor of global ``shape`` placed by ``spec``, made as this
+    process's block alone (the full tensor never exists)."""
+    pl = placements(spec, device_mesh.mesh_dim_names)
+    _, size = block_bounds(shape, pl, device_mesh)
+    block = torch.zeros(size, dtype=dtype, device=device)
+    return DTensor.from_local(block, device_mesh, pl, run_check=False)
 
 
 def place(tree, spec_tree, device_mesh):
@@ -224,23 +261,168 @@ def replicate_dim(t: DTensor, dim: int) -> DTensor:
 def local_rows(fn, *tensors):
     """``fn(*tensors)`` on each process's own batch rows.  Placed
     tensors are redistributed to the batch placements of the first
-    (``Shard(0)`` where it shards dim 0, ``Replicate`` on every other mesh
-    dimension), ``fn`` runs on the local blocks, and its outputs (batch
-    leading) come back placed the same way, gradients flowing through.
-    ``fn`` must treat the rows independently.  Plain tensors go straight
-    to ``fn``."""
+    (:func:`row_placements`), ``fn`` runs on the local blocks, and its
+    outputs (batch leading) come back placed the same way, gradients
+    flowing through (:func:`local_map`).  ``fn`` must treat the rows
+    independently.  Plain tensors go straight to ``fn``."""
     first = tensors[0]
     if not isinstance(first, DTensor):
         return fn(*tensors)
-    dm = first.device_mesh
-    rows = [p if p == Shard(0) else Replicate() for p in first.placements]
-    out = fn(*(t.redistribute(dm, rows).to_local() for t in tensors))
-    return tuple(DTensor.from_local(o, dm, rows, run_check=False)
-                 for o in out)
+    rows = row_placements(first)
+    return local_map(lambda *t: tuple(fn(*t)), tensors,
+                     [rows] * len(tensors), rows)
+
+
+def replicated_local(t):
+    """A placed tensor's full value as this process's plain tensor (a
+    gather over the mesh dimensions that split it); a plain tensor as it
+    is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh,
+                          [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def row_placements(t: DTensor) -> list:
+    """``t``'s batch placements: ``Shard(0)`` where it splits dim 0,
+    ``Replicate`` on every other mesh dimension."""
+    return [p if p == Shard(0) else Replicate() for p in t.placements]
+
+
+def local_map(fn, tensors, in_pl, out_pl):
+    """``fn`` on each process's blocks: ``tensors[i]`` (placed) is
+    redistributed to the placements ``in_pl[i]`` and ``fn`` runs on the
+    local blocks (plain tensors pass as they are); each output comes back
+    placed by ``out_pl[j]`` (one list of placements: every output so).
+    ``fn`` must compute each output block from
+    the input blocks alone.  Gradients flow through: an input replicated
+    over a mesh dimension on which an output differs from process to
+    process (split or partial) takes a ``Partial`` gradient there, the
+    sum of every process's part.  Without a placed tensor, ``fn`` runs on
+    the tensors as they are."""
+    placed = [t for t in tensors if isinstance(t, DTensor)]
+    if not placed:
+        return fn(*tensors)
+    dm = placed[0].device_mesh
+    every = bool(out_pl) and isinstance(out_pl[0], Placement)
+    varies = [any(not isinstance(pl[i], Replicate)
+                  for pl in ([out_pl] if every else out_pl))
+              for i in range(dm.ndim)]
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            return t
+        grad = [Partial() if varies[i] and isinstance(p, Replicate) else p
+                for i, p in enumerate(pl)]
+        return t.redistribute(dm, pl).to_local(grad_placements=grad)
+
+    out = fn(*(local(t, pl) for t, pl in zip(tensors, in_pl)))
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    pls = [out_pl] * len(outs) if every else out_pl
+    wrapped = tuple(DTensor.from_local(o, dm, pl, run_check=False)
+                    for o, pl in zip(outs, pls))
+    return wrapped[0] if single else wrapped
+
+
+def vocab_rows(table: DTensor, ids) -> DTensor:
+    """``table[ids]`` for a table placed over a mesh: each process looks
+    the ids up in its own block of vocabulary rows (zeros for ids
+    outside it) and the blocks are summed over the mesh dimensions that
+    split the vocabulary (an all-reduce of a plain ``Partial``; DTensor's
+    own masked partial loses its mask under rematerialisation on some
+    versions).  ``ids`` is a plain tensor, the same on every process, or
+    placed by its rows; the result is placed by the ids' rows and
+    replicated otherwise."""
+    dm = table.device_mesh
+    ids_pl = (list(ids.placements) if isinstance(ids, DTensor)
+              else [Replicate()] * dm.ndim)
+    if any(isinstance(p, Shard) and p.dim != 0 for p in table.placements):
+        table = table.redistribute(dm, [p if p == Shard(0) else Replicate()
+                                        for p in table.placements])
+    off, size = block_bounds(table.shape, table.placements, dm)
+    lo, n = off[0], size[0]
+    # the rows' gradient: each process's block of the table gets its
+    # own ids' part, summed over the mesh dimensions that split the ids
+    block = table.to_local(grad_placements=[
+        Partial() if ids_pl[i] == Shard(0) else p
+        for i, p in enumerate(table.placements)])
+    local = ids.to_local() if isinstance(ids, DTensor) else ids
+    inside = (local >= lo) & (local < lo + n)
+    rows = torch.nn.functional.embedding((local - lo).clamp(0, n - 1),
+                                         block)
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    split = [p == Shard(0) for p in table.placements]
+    partial = DTensor.from_local(
+        rows, dm, [Partial() if split[i] else ids_pl[i]
+                   for i in range(dm.ndim)], run_check=False)
+    return partial.redistribute(dm, [Replicate() if split[i] else ids_pl[i]
+                                     for i in range(dm.ndim)])
+
+
+_REDUCE = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def _all_gather(local: torch.Tensor, dim: int, device_mesh,
+                mesh_dim: int) -> torch.Tensor:
+    """The blocks of ``local`` along ``dim`` from every process of mesh
+    dimension ``mesh_dim``, in order, by the raw
+    ``all_gather_into_tensor``."""
+    rows = local.movedim(dim, 0).contiguous()
+    out = rows.new_empty((device_mesh.size(mesh_dim) * rows.shape[0],)
+                         + tuple(rows.shape[1:]))
+    torch.distributed.all_gather_into_tensor(
+        out, rows, group=device_mesh.get_group(mesh_dim))
+    return out.movedim(0, dim)
+
+
+def full(x):
+    """A ``DTensor`` as its full tensor (every process calls it), by raw
+    collectives over each mesh dimension's group: ``Partial`` blocks
+    all-reduced, ``Shard`` blocks gathered with
+    ``all_gather_into_tensor``, the last mesh dimension first; any other
+    value as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dist = torch.distributed
+    dm = x.device_mesh
+    block_bounds(x.shape, x.placements, dm)          # even splits only
+    local = x.to_local()
+    for i, p in enumerate(x.placements):
+        if p.is_partial():
+            op = _REDUCE.get(getattr(p, "reduce_op", None))
+            if op is None:
+                raise ValueError(f"cannot reduce a {p} placement")
+            local = local.clone()
+            dist.all_reduce(local, op=getattr(dist.ReduceOp, op),
+                            group=dm.get_group(i))
+    for i in reversed(range(dm.ndim)):
+        p = x.placements[i]
+        if isinstance(p, Shard):
+            local = _all_gather(local, p.dim, dm, i)
+    return local
+
+
+def gather_rows(x):
+    """A placed KV leaf's batch rows (the dimension fourth from the end)
+    gathered over the mesh dimensions that split them, by
+    :func:`_all_gather`; those mesh dimensions become ``Replicate`` and
+    the others keep their blocks.  A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dm = x.device_mesh
+    dim = x.dim() - 4
+    block_bounds(x.shape, x.placements, dm)          # even splits only
+    pl, local = list(x.placements), x.to_local()
+    for i in reversed(range(dm.ndim)):
+        if pl[i] == Shard(dim):
+            local = _all_gather(local, dim, dm, i)
+            pl[i] = Replicate()
+    return DTensor.from_local(local, dm, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def gather(tree):
-    """Every ``DTensor`` leaf as its full tensor (a collective: every
+    """Every ``DTensor`` leaf as its full tensor (:func:`full`; every
     process calls it), other leaves as they are."""
-    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
-                    else x, tree)
+    return tree_map(full, tree)

@@ -1,30 +1,49 @@
-"""One-card dry run (port of ``repro/launch/dryrun.py``).
+"""Dry run (port of ``repro/launch/dryrun.py``).
 
-For an (architecture x input-shape) cell on the host mesh (this host's
-cards, ``launch/mesh.make_host_mesh``): the cell's step (train, prefill
-or decode) is built over ``meta`` inputs (``launch/specs.py``) and run
-once under the FLOP and byte counters (``roofline/jaxpr_cost.py``).
-Nothing is allocated and nothing is compiled, so a full configuration
-that does not fit the card is still described.  The record, JSON under
-``build/dryrun/`` by default, holds the inputs' bytes per device beside
-the card's memory, the counted FLOPs and bytes, and the roofline terms
-on the machine profile (``h100-sxm`` on an H100).  Run one cell:
+For an (architecture x input-shape) cell on a mesh, the cell's step
+(train, prefill or decode) is built over ``meta`` inputs
+(``launch/specs.py``) and run once under the counters
+(``roofline/jaxpr_cost.py``).  Nothing is allocated and nothing is
+compiled, so a full configuration that does not fit a card is still
+described.  The record, JSON ``{mesh}__{arch}__{shape}.json`` under
+``build/dryrun/`` by default, holds the inputs' bytes per device, the
+counted FLOPs and bytes, the collective bytes by kind and the roofline
+terms on the machine profile (``h100-sxm`` on an H100).  Run one cell:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b \\
-        --shape train_4k
+        --shape train_4k [--mesh host|single|multi|optsingle|optmulti]
 
 or every cell, each in a fresh process (on a host without a card, add
 ``--n-devices 1`` to describe a one-card host mesh):
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh ...]
 
-What differs from the reference:
+The meshes:
 
-* The production meshes (``--mesh single|multi|optsingle|optmulti``)
-  raise: the reference compiles them over 512 host devices and reads
-  collective bytes from the HLO, and the port has neither a compiler of
-  a sharded program nor NCCL byte counts yet (ROADMAP.md Queue 1 item
-  7).  On the host mesh the collective bytes are 0.
+* ``host`` (the default) is this host's cards
+  (``launch/mesh.make_host_mesh``), one process: the step runs on plain
+  ``meta`` tensors, its global FLOPs and bytes are counted
+  (``FlopCounterMode``, ``ByteCounterMode``) and divided by the device
+  count, as the reference divides its counted step's, and there are no
+  collectives.
+* ``single`` and ``multi`` are the reference's production meshes, 16 x
+  16 ``("data", "model")`` and 2 x 16 x 16 ``("pod", "data",
+  "model")``; ``optsingle`` and ``optmulti`` add its ``opt`` variants
+  (sequence-sharded attention in train and prefill; ``two_d_mlp``
+  weights and a sequence-sharded cache in decode).  This process stands
+  in for rank 0 of a fake world of 256 or 512 ranks
+  (``launch/mesh.fake_world``): the inputs are placed by the specs as
+  ``DTensor``s of ``meta`` blocks, and the step runs as rank 0 would
+  run it, under ``jaxpr_cost.RankCostMode``.  So the record's FLOPs and
+  bytes are rank 0's own, counted on its local shapes (replicated work
+  included), not the global count divided by the device count; its
+  ``collectives`` are the output bytes of the collectives rank 0
+  issues (``analysis.CollectiveCounter``), by the reference's kinds.
+  The collectives are those DTensor's rules and the port's own layouts
+  choose, not XLA's.
+
+What else differs from the reference:
+
 * There are no compiler temp bytes (``compiled.memory_analysis()``): the
   record's ``temp_bytes`` is null.  The analytic input bytes are a lower
   bound on the peak memory, not the peak.
@@ -33,7 +52,9 @@ What differs from the reference:
   is counted at one and two layer groups (with the remainder blocks as
   they are) and extrapolated linearly to the full depth: every group of
   a config is the same computation, so this is exact
-  (``flops_method``: ``"traced"`` or ``"group_extrapolated"``).
+  (``flops_method``: ``"traced"`` or ``"group_extrapolated"``); the
+  collective bytes extrapolate the same way, as the reference multiplies
+  a loop body's by its trip count.
 * A decode step runs at the cache's last position: the work does not
   depend on it (every slot is attended under a mask).
 """
@@ -53,7 +74,8 @@ from repro_torch import configs
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.dist import sharding
 from repro_torch.launch import specs as lspecs
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (device_mesh, fake_world, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models import transformer
 from repro_torch.roofline import analysis, jaxpr_cost
 from repro_torch.serve import step as serve_step_mod
@@ -64,7 +86,7 @@ OUT_DIR = os.path.normpath(os.path.join(
 #: Seconds a full-depth trace may be expected to take before the count is
 #: extrapolated from one and two layer groups (the estimate runs up to a
 #: third low; the extrapolation is exact).
-TRACE_BUDGET_S = 5.0
+TRACE_BUDGET_S = 1.0
 PRODUCTION_MESHES = ("single", "multi", "optsingle", "optmulti")
 
 
@@ -99,10 +121,18 @@ def _logits_spec(cfg: ArchConfig, shape: ShapeConfig, mesh):
                            (shape.global_batch, cfg.vocab_size), mesh)
 
 
-def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
+def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, opt: bool = False):
     """``(fn, args, in_specs, out_specs)``: the cell's step, its ``meta``
     arguments and their spec trees.  The steps update their state or
-    cache in place, where the reference donates it."""
+    cache in place, where the reference donates it.  ``opt`` is the
+    reference's variant: sequence-sharded attention in train and
+    prefill, ``two_d_mlp`` weights and a sequence-sharded cache in
+    decode."""
+    if opt and shape.kind in ("train", "prefill") \
+            and not cfg.is_attention_free:
+        dp = sharding.dp_axes(mesh)
+        cfg = dataclasses.replace(
+            cfg, attn_seq_shard=dp if isinstance(dp, tuple) else (dp,))
     if shape.kind == "train":
         state_sh = lspecs.state_shapes(cfg)
         batch_sh = lspecs.train_batch_specs(cfg, shape)
@@ -131,8 +161,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
         return fn, (params_sh, batch_sh), (p_specs, b_specs), out_specs
 
     # decode
+    p_specs = sharding.param_specs(params_sh, mesh, two_d_mlp=opt)
     cache_sh, tok_sh, pos_sh = lspecs.decode_arg_specs(cfg, shape)
-    c_specs = sharding.cache_specs(cache_sh, mesh)
+    c_specs = sharding.cache_specs(cache_sh, mesh, seq_shard=opt)
     tok_spec = sharding._guard((sharding.dp_axes(mesh), None),
                                tok_sh.shape, mesh)
     step = serve_step_mod.make_decode_step(cfg)
@@ -158,36 +189,53 @@ def at_groups(cfg: ArchConfig, n_groups: int) -> ArchConfig:
     return out
 
 
-def _counted(cfg: ArchConfig, shape: ShapeConfig, mesh, cache):
-    """(FLOPs, bytes, seconds) of one meta run of the cell's step."""
-    fn, args, _, _ = build_cell(cfg, shape, mesh)
+def _counted(cfg: ArchConfig, shape: ShapeConfig, mesh, cache, opt=False,
+             dmesh=None):
+    """(FLOPs, bytes, seconds, collective bytes) of one meta run of the
+    cell's step: without ``dmesh`` global counts on plain tensors, with it
+    rank 0's own on inputs placed over it."""
+    fn, args, in_specs, _ = build_cell(cfg, shape, mesh, opt)
     t0 = time.perf_counter()
-    with cache:
-        flops, nbytes = jaxpr_cost.step_cost(fn, *args)
-    return flops, nbytes, time.perf_counter() - t0
+    if dmesh is None:
+        with cache:
+            flops, nbytes = jaxpr_cost.step_cost(fn, *args)
+        coll = {"total": 0}
+    else:
+        args = tuple(sharding.place(a, s, dmesh)
+                     for a, s in zip(args, in_specs))
+        with cache:
+            cost = jaxpr_cost.rank_cost(fn, *args)
+        flops, nbytes, coll = cost["flops"], cost["bytes"], cost["collectives"]
+    return flops, nbytes, time.perf_counter() - t0, coll
 
 
-def count_step(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
-    """The cell's global FLOPs and bytes: a full-depth trace where it is
-    expected within :data:`TRACE_BUDGET_S`, else the linear extrapolation
-    from one and two layer groups (``flops_method``)."""
+def count_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+               opt: bool = False, dmesh=None) -> dict:
+    """The cell's FLOPs, bytes and collective bytes (global on the host
+    mesh, rank 0's over ``dmesh``): a full-depth trace where it is
+    expected within :data:`TRACE_BUDGET_S`, else the linear
+    extrapolation from one and two layer groups (``flops_method``)."""
     _, n_groups, _ = cfg.scan_groups()
     t0 = time.perf_counter()
     cache = jaxpr_cost.MetaShapeCache()
     method = "traced"
     if n_groups > 2:
-        f1, b1, _ = _counted(at_groups(cfg, 1), shape, mesh, cache)
-        f2, b2, s2 = _counted(at_groups(cfg, 2), shape, mesh, cache)
+        f1, b1, _, c1 = _counted(at_groups(cfg, 1), shape, mesh, cache, opt,
+                                 dmesh)
+        f2, b2, s2, c2 = _counted(at_groups(cfg, 2), shape, mesh, cache,
+                                  opt, dmesh)
         # the two-group trace's time per group, fixed costs included: a
         # full trace takes at most this
         if s2 * n_groups / 2 > TRACE_BUDGET_S:
             method = "group_extrapolated"
-            flops = f1 + (n_groups - 1) * (f2 - f1)
-            nbytes = b1 + (n_groups - 1) * (b2 - b1)
+            grow = lambda one, two: one + (n_groups - 1) * (two - one)
+            flops, nbytes = grow(f1, f2), grow(b1, b2)
+            coll = {k: grow(v, c2[k]) for k, v in c1.items()}
     if method == "traced":
-        flops, nbytes, _ = _counted(cfg, shape, mesh, cache)
-    return {"flops": flops, "hbm_bytes": nbytes, "flops_method": method,
-            "trace_s": time.perf_counter() - t0}
+        flops, nbytes, _, coll = _counted(cfg, shape, mesh, cache, opt,
+                                          dmesh)
+    return {"flops": flops, "hbm_bytes": nbytes, "collectives": coll,
+            "flops_method": method, "trace_s": time.perf_counter() - t0}
 
 
 def _card_bytes():
@@ -198,14 +246,10 @@ def _card_bytes():
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
              out_dir: str = OUT_DIR, *, n_devices: int | None = None) -> dict:
-    """Dry-run one cell on the host mesh and write its record as
-    ``host__<arch>__<shape>.json`` under ``out_dir``."""
-    if mesh_kind in PRODUCTION_MESHES:
-        raise NotImplementedError(
-            f"--mesh {mesh_kind}: the production meshes need a compiled "
-            "sharded program and NCCL collective bytes, which come with "
-            "ROADMAP.md Queue 1 item 7; the port dry-runs --mesh host")
-    if mesh_kind != "host":
+    """Dry-run one cell on ``mesh_kind`` (``host`` or a production mesh,
+    module docstring) and write its record as
+    ``{mesh_kind}__<arch>__<shape>.json`` under ``out_dir``."""
+    if mesh_kind != "host" and mesh_kind not in PRODUCTION_MESHES:
         raise ValueError(f"unknown mesh {mesh_kind!r}")
     cfg = configs.get_arch(arch)
     shape = configs.get_shape(shape_name)
@@ -215,15 +259,24 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
     if not ok:
         return rec
 
-    mesh = make_host_mesh(n_devices)
+    opt = mesh_kind.startswith("opt")
+    if mesh_kind == "host":
+        mesh = make_host_mesh(n_devices)
+        count = count_step(cfg, shape, mesh)
+        per_device = mesh.size                   # global counts
+    else:
+        mesh = make_production_mesh(multi_pod=mesh_kind.endswith("multi"))
+        with fake_world(mesh):
+            count = count_step(cfg, shape, mesh, opt=opt,
+                               dmesh=device_mesh(mesh, "cpu"))
+        per_device = 1                           # rank 0's own counts
     n_dev = mesh.size
-    _, args, in_specs, _ = build_cell(cfg, shape, mesh)
+    _, args, in_specs, _ = build_cell(cfg, shape, mesh, opt)
     inputs = analytic_input_bytes_per_device(args, in_specs, mesh)
     card = _card_bytes()
-    count = count_step(cfg, shape, mesh)
-    flops = count["flops"] / n_dev
-    hbm = count["hbm_bytes"] / n_dev
-    coll = {"total": 0}
+    flops = count["flops"] / per_device
+    hbm = count["hbm_bytes"] / per_device
+    coll = count["collectives"]
     mf = analysis.model_flops(cfg, shape, n_dev)
     roof = analysis.analyze({"flops": flops, "bytes accessed": hbm}, coll,
                             model_flops_per_device=mf,
@@ -254,8 +307,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
         json.dump(rec, f, indent=1)
     print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: inputs "
           f"{inputs / 1e9:.2f} GB/device, flops/dev {roof.flops:.4e} "
-          f"({count['flops_method']}, {count['trace_s']:.1f} s), "
-          f"bottleneck {roof.bottleneck}")
+          f"({count['flops_method']}, {count['trace_s']:.1f} s), coll "
+          f"{coll['total']:.3e} B, bottleneck {roof.bottleneck}")
     return rec
 
 
@@ -271,10 +324,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        run_cell(args.arch, args.shape, args.mesh, args.out)   # raises
-    extra = [] if args.n_devices is None else ["--n-devices",
-                                               str(args.n_devices)]
+    extra = ["--mesh", args.mesh] + (
+        [] if args.n_devices is None else ["--n-devices",
+                                           str(args.n_devices)])
 
     if args.all:
         failures = []
@@ -283,10 +335,10 @@ def main(argv=None):
                 # record the skip without spawning
                 os.makedirs(args.out, exist_ok=True)
                 p = os.path.join(args.out,
-                                 f"host__{cfg.name}__{shape.name}.json")
+                                 f"{args.mesh}__{cfg.name}__{shape.name}.json")
                 with open(p, "w") as f:
                     json.dump({"arch": cfg.name, "shape": shape.name,
-                               "mesh": "host", "runnable": False,
+                               "mesh": args.mesh, "runnable": False,
                                "skip_reason": why}, f)
                 continue
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",

@@ -9,7 +9,12 @@ devices.  Like the reference these keep its single-controller design: one
 process drives a tuple of devices, one per partition.  Training over a
 ``("data", "model")`` mesh is the exception: there one process runs per
 mesh position, and :func:`device_mesh` makes the ``torch.distributed``
-``DeviceMesh`` that ``dist/sharding.place`` places the state over.  A
+``DeviceMesh`` that ``dist/sharding.place`` places the state over;
+serving places its parameters and caches the same way
+(``launch/serve.py``, ``launch/httpd.py``).  :func:`init_process` joins
+a launcher to its ``torchrun`` group, and :func:`fake_world` stands a
+process in for rank 0 of the production meshes' 256 or 512 ranks (the
+dry run: no data moves).  A
 device may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``), which plays
 the role of the reference's forced host device count.  Like the
 reference's these are functions, never module-level constants, so
@@ -17,9 +22,11 @@ importing this module touches no device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import os
 
 import torch
 
@@ -86,11 +93,68 @@ def make_host_mesh(n_devices: int | None = None) -> Mesh:
     return Mesh(("data", "model"), (n_devices, 1))
 
 
+def get_mesh(kind: str) -> Mesh:
+    """A launcher's ``--mesh``: ``host`` is ``(world_size, 1)``;
+    ``single`` and ``multi`` are the production meshes, which
+    :func:`device_mesh` refuses unless their 256 or 512 processes run."""
+    if kind == "host":
+        return make_host_mesh(world_size())
+    return make_production_mesh(multi_pod=(kind == "multi"))
+
+
+def init_process(device: str) -> tuple[torch.device, str | None]:
+    """(this process's device, the group's backend) by the launchers'
+    device rule, joining the ``torchrun`` group when ``WORLD_SIZE`` > 1:
+    ``cuda:LOCAL_RANK % device_count`` (raising without a card) unless
+    ``device`` is the CPU; ``nccl`` where every process on the host has a
+    card of its own, else ``gloo`` (ranks that share a card, which NCCL
+    refuses, or the CPU).  (``device``, None) for one process."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dist = torch.distributed
+    if world == 1 and not dist.is_initialized():
+        return resolve_device(device), None
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if torch.device(device).type == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        resolve_device("cuda")                   # raises without a card
+        n_cards = torch.cuda.device_count()
+        dev = torch.device("cuda", local % n_cards)
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        backend = "nccl" if local_world <= n_cards else "gloo"
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                                world_size=world)
+    return dev, backend
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Mesh):
+    """A ``torch.distributed`` group of backend ``"fake"`` in which this
+    process is rank 0 of ``mesh.size`` ranks, destroyed on exit.  Its
+    collectives move nothing and return at once, so a step placed over
+    :func:`device_mesh` of ``mesh`` runs (on ``meta`` blocks) as rank 0
+    would, issuing rank 0's collectives: the production meshes' dry run.
+    Raises if a group is already initialised."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist = torch.distributed
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def device_mesh(mesh: Mesh, device_type: str):
     """``mesh`` as a ``torch.distributed`` ``DeviceMesh`` of
     ``device_type`` over the processes of the default group, one per mesh
-    position in row-major order; None for a one-position mesh in a
-    process without a group (the one-process path, plain tensors).
+    position in row-major order (a :func:`fake_world` too); None for a
+    one-position mesh in a process without a group (the one-process
+    path, plain tensors).
     Raises, as the reference's production mesh does, unless the world
     has exactly ``mesh.size`` processes."""
     have = world_size()

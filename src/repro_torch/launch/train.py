@@ -30,50 +30,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 
 import torch
 
 from repro_torch import configs
 from repro_torch.data import pipeline
-from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint, elastic, sharding, straggler
-from repro_torch.launch.mesh import (device_mesh, make_host_mesh,
-                                     make_production_mesh, world_size)
+from repro_torch.launch.mesh import device_mesh, get_mesh, init_process
 from repro_torch.models import transformer
 from repro_torch.train import optimizer as opt
 from repro_torch.train import step as train_step_mod
-
-
-def get_mesh(kind: str):
-    if kind == "host":
-        return make_host_mesh(world_size())
-    return make_production_mesh(multi_pod=(kind == "multi"))
-
-
-def init_process(device: str) -> tuple[torch.device, str | None]:
-    """(this process's device, the group's backend) by the launcher's
-    device rule, joining the ``torchrun`` group when ``WORLD_SIZE`` > 1;
-    (``--device``, None) for one process."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    dist = torch.distributed
-    if world == 1 and not dist.is_initialized():
-        return resolve_device(device), None
-    local = int(os.environ.get("LOCAL_RANK", "0"))
-    if torch.device(device).type == "cpu":
-        dev, backend = torch.device("cpu"), "gloo"
-    else:
-        resolve_device("cuda")                   # raises without a card
-        n_cards = torch.cuda.device_count()
-        dev = torch.device("cuda", local % n_cards)
-        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        backend = "nccl" if local_world <= n_cards else "gloo"
-        torch.cuda.set_device(dev)
-    if not dist.is_initialized():
-        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
-                                world_size=world)
-    return dev, backend
 
 
 def main(argv=None):

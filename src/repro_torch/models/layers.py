@@ -11,9 +11,11 @@ with the same ``NEG_INF`` mask and online-softmax order.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -98,12 +100,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention.
 # ---------------------------------------------------------------------------
 
+def _heads(t: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
+    """(B, S, n * d_head) as (B, S, n, d_head).  A placed projection
+    whose split of the last dimension does not divide the ``n`` heads
+    (4 KV heads over 16 processes) is gathered over those mesh
+    dimensions first: DTensor cannot split fewer heads than processes."""
+    b, s = t.shape[:2]
+    if isinstance(t, DTensor):
+        dm = t.device_mesh
+        dims = [i for i, p in enumerate(t.placements) if p == Shard(2)]
+        if n % math.prod(dm.size(i) for i in dims):
+            t = t.redistribute(dm, [Replicate() if i in dims else p
+                                    for i, p in enumerate(t.placements)])
+    return t.reshape(b, s, n, d_head)
+
+
 def _qkv(params: dict, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor):
-    b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = _heads(x @ params["wq"], cfg.n_heads, cfg.d_head)
+    k = _heads(x @ params["wk"], cfg.n_kv_heads, cfg.d_head)
+    v = _heads(x @ params["wv"], cfg.n_kv_heads, cfg.d_head)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -131,7 +147,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
 
     q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh); ``q_offset`` = absolute
     position of q[0] relative to k[0]; ``window > 0`` masks to a sliding
-    window.  GQA without repeating KV.  Returns (B, Sq, H, dh)."""
+    window.  GQA without repeating KV.  Returns (B, Sq, H, dh).  Placed
+    over a mesh (``DTensor``), it runs on each process's blocks
+    (:func:`_placed_attention`)."""
+    if isinstance(q, DTensor):
+        return _placed_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset,
+                                 kv_chunk=kv_chunk)
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -174,6 +196,67 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     return out.to(q.dtype)
 
 
+def _attention_layout(q: DTensor, kv_heads: int):
+    """Per mesh dimension, the placements of q and of k/v for attention
+    on local blocks, q's offset in the sequence, and the KV heads this
+    process's query heads read: batch rows stay split; query heads stay
+    split, with their KV heads split alike where those divide, else each
+    process takes the KV heads of its own query heads (where its heads
+    cover whole groups, or lie in one); a split query sequence keeps its
+    rows against all keys; anything else is replicated."""
+    dm = q.device_mesh
+    coord = dm.get_coordinate()
+    n_heads = q.shape[2]
+    q_pl, kv_pl, offset, kv_range = [], [], 0, None
+    for i, p in enumerate(q.placements):
+        n = dm.size(i)
+        local = n_heads // n
+        rep = n_heads // kv_heads
+        if p == Shard(0):
+            q_pl.append(p)
+            kv_pl.append(p)
+        elif p == Shard(2) and kv_heads % n == 0:
+            q_pl.append(p)
+            kv_pl.append(p)
+        elif p == Shard(2) and n_heads % n == 0 and kv_range is None \
+                and (local % rep == 0 or rep % local == 0):
+            q_pl.append(p)
+            kv_pl.append(Replicate())
+            kv_range = (coord[i] * local // rep,
+                        ((coord[i] + 1) * local - 1) // rep + 1)
+        elif p == Shard(1) and q.shape[1] % n == 0:
+            q_pl.append(p)
+            kv_pl.append(Replicate())
+            offset += coord[i] * (q.shape[1] // n)
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    return q_pl, kv_pl, offset, kv_range
+
+
+def _placed_attention(q, k, v, *, causal, window, softcap, q_offset,
+                      kv_chunk):
+    """:func:`chunked_attention` of placed tensors on each process's
+    blocks (:func:`_attention_layout`): every output block is the plain
+    function of its rows, heads and keys, in the same float32 order as on
+    one process, and no collective runs unless a layout must change (a
+    split query sequence gathers its keys, query heads split finer than
+    the KV heads gather those).  DTensor's own rules for the
+    grouped-query contractions differ between versions."""
+    q_pl, kv_pl, offset, kv_range = _attention_layout(q, k.shape[2])
+
+    def attend(ql, kl, vl):
+        if kv_range is not None:
+            kl = kl[:, :, kv_range[0]:kv_range[1]]
+            vl = vl[:, :, kv_range[0]:kv_range[1]]
+        return chunked_attention(ql, kl, vl, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset + offset,
+                                 kv_chunk=kv_chunk)
+
+    return sharding.local_map(attend, (q, k, v), (q_pl, kv_pl, kv_pl),
+                              (q_pl,))
+
+
 def _seq_shard(t: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """With ``cfg.attn_seq_shard`` (the data axes), pin (B, S, ...)
     activations placed over a mesh to (dp, "model", None, ...), so the
@@ -197,8 +280,23 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
         q, k, v, causal=cfg.causal and not cfg.encoder_only,
         window=cfg.sliding_window if local else 0,
         softcap=cfg.logit_softcap, q_offset=0, kv_chunk=kv_chunk)
+    return _seq_shard(out_proj(out, params["wo"]), cfg)
+
+
+def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, H, dh) through ``wo`` (H * dh, D).
+    Placed with its sequence split (sequence-sharded attention), each
+    process projects its own positions with ``wo`` whole, and the result
+    keeps the split: DTensor refuses, on some versions, to fold a split
+    sequence into the product's rows."""
+    if isinstance(out, DTensor) and Shard(1) in out.placements:
+        pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+              for p in out.placements]
+        return sharding.local_map(
+            lambda o, w: o.reshape(o.shape[0], o.shape[1], -1) @ w,
+            (out, wo), (pl, [Replicate()] * len(pl)), pl)
     b, s = out.shape[:2]
-    return _seq_shard(out.reshape(b, s, -1) @ params["wo"], cfg)
+    return out.reshape(b, s, -1) @ wo
 
 
 def _decode_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
@@ -212,19 +310,102 @@ def _decode_attend(params: dict, q: torch.Tensor, cfg: ArchConfig,
                    cache_k: torch.Tensor, cache_v: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """One query token over every cache slot where ``mask`` (S,) holds;
-    returns the output projection (B, 1, D)."""
+    returns the output projection (B, 1, D).  A placed cache is attended
+    on each process's blocks (:func:`_placed_decode_attend`)."""
+    if isinstance(cache_k, DTensor):
+        out = _placed_decode_attend(q, cfg, cache_k, cache_v, mask)
+    else:
+        out = _attend_one(q, cfg, cache_k, cache_v, mask)
     b = q.shape[0]
-    kvh = cfg.n_kv_heads
-    rep = cfg.n_heads // kvh
-    qg = _scaled(q).to(DTYPE).reshape(b, 1, kvh, rep, cfg.d_head)
+    return out.reshape(b, 1, -1) @ params["wo"]
+
+
+def _attend_one(q, cfg: ArchConfig, cache_k, cache_v, mask, group=None):
+    """The attention of one query token (B, 1, H, dh) over its cache
+    slots; with ``group``, the slots are this process's block of a cache
+    whose sequence is split over ``group``, and the softmax's max and sum
+    and the output are reduced over it (split-KV decoding)."""
+    b, _, h, dh = q.shape
+    kvh = cache_k.shape[2]
+    qg = _scaled(q).to(DTYPE).reshape(b, 1, kvh, h // kvh, dh)
     logits = torch.einsum("bqgrd,bcgd->bgrqc", qg.float(),
                           cache_k.to(DTYPE).float())
     logits = _soft_cap(logits, cfg.logit_softcap)
     logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1).to(DTYPE)
+    if group is None:
+        p = torch.softmax(logits, dim=-1).to(DTYPE)
+        out = torch.einsum("bgrqc,bcgd->bqgrd", p.float(),
+                           cache_v.to(DTYPE).float())
+        return out.to(q.dtype)
+    from torch.distributed import _functional_collectives as funcol
+    m = funcol.all_reduce(logits.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(logits - m)
+    total = funcol.all_reduce(e.sum(dim=-1, keepdim=True), "sum", group)
+    p = (e / total).to(DTYPE)
     out = torch.einsum("bgrqc,bcgd->bqgrd", p.float(),
-                       cache_v.to(DTYPE).float()).to(q.dtype)
-    return out.reshape(b, 1, -1) @ params["wo"]
+                       cache_v.to(DTYPE).float())
+    return funcol.all_reduce(out, "sum", group).to(q.dtype)
+
+
+def _placed_decode_attend(q, cfg: ArchConfig, cache_k: DTensor,
+                          cache_v: DTensor, mask: torch.Tensor):
+    """:func:`_attend_one` over a placed cache: batch rows and KV heads
+    as the cache splits them (the query follows), and where the cache
+    splits its sequence (``cache_specs(seq_shard=True)``) each process
+    attends its own slots and the softmax is reduced over that mesh
+    dimension."""
+    dm = cache_k.device_mesh
+    off, size = sharding.block_bounds(cache_k.shape, cache_k.placements, dm)
+    q_pl, group = [], None
+    for i, p in enumerate(cache_k.placements):
+        if p == Shard(1):
+            if group is not None:
+                raise ValueError("the cache's sequence is split over more "
+                                 "than one mesh dimension")
+            group = dm.get_group(i)
+            q_pl.append(Replicate())
+        else:
+            q_pl.append(p if p in (Shard(0), Shard(2)) else Replicate())
+    local_mask = mask[off[1]:off[1] + size[1]]
+
+    def attend(ql, kl, vl):
+        return _attend_one(ql, cfg, kl, vl, local_mask, group)
+
+    return sharding.local_map(attend, (q, cache_k, cache_v),
+                              (q_pl, cache_k.placements, cache_v.placements),
+                              (q_pl,))
+
+
+def write_slots(cache: torch.Tensor, slots, values: torch.Tensor) -> None:
+    """``cache[:, slots[j]] = values[:, j]`` IN PLACE for the host list
+    ``slots`` of sequence positions.  A placed cache writes on each
+    process only the slots of its own block (the values are brought to
+    the cache's placements, their sequence whole), as runs of slices."""
+    if not isinstance(cache, DTensor):
+        cache[:, slots] = values.to(cache.dtype)
+        return
+    dm = cache.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    if isinstance(values, DTensor):
+        vals = values.redistribute(dm, pl).to_local()
+    else:
+        vals = DTensor.from_local(values, dm, [Replicate()] * dm.ndim,
+                                  run_check=False).redistribute(
+                                      dm, pl).to_local()
+    off, size = sharding.block_bounds(cache.shape, cache.placements, dm)
+    lo, hi = off[1], off[1] + size[1]
+    runs = []                                # [block slot, value index, n]
+    for j, slot in enumerate(slots):
+        if not lo <= slot < hi:
+            continue
+        if runs and runs[-1][0] + runs[-1][2] == slot - lo \
+                and runs[-1][1] + runs[-1][2] == j:
+            runs[-1][2] += 1
+        else:
+            runs.append([slot - lo, j, 1])
+    block = cache.to_local()
+    for dst, src, n in runs:
+        block[:, dst:dst + n] = vals[:, src:src + n].to(block.dtype)
 
 
 def decode_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -235,8 +416,12 @@ def decode_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
     updated copies); ``local`` masks keys outside the sliding window.
     Returns (out (B, 1, D), cache_k, cache_v)."""
     q, k_new, v_new = _decode_qkv(params, x, cfg, pos)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    if isinstance(cache_k, DTensor):
+        write_slots(cache_k, [pos], k_new)
+        write_slots(cache_v, [pos], v_new)
+    else:
+        cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+        cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
     k_pos = torch.arange(cache_k.shape[1], device=x.device)
     mask = k_pos <= pos
     if local:
@@ -255,8 +440,12 @@ def decode_attention_ring(params: dict, x: torch.Tensor, cfg: ArchConfig,
     O(W) instead of O(S_max).  Returns (out (B, 1, D), cache_k, cache_v)."""
     w = cache_k.shape[1]
     q, k_new, v_new = _decode_qkv(params, x, cfg, pos)
-    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    if isinstance(cache_k, DTensor):
+        write_slots(cache_k, [slot], k_new)
+        write_slots(cache_v, [slot], v_new)
+    else:
+        cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
+        cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
     abs_pos = pos - (pos - torch.arange(w, device=x.device)) % w
     return _decode_attend(params, q, cfg, cache_k, cache_v, abs_pos >= 0), \
         cache_k, cache_v
@@ -286,10 +475,10 @@ def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     table = params["embed"]
     if isinstance(table, DTensor):
-        # placed over a mesh: the embedding op, whose rules DTensor has in
-        # every version (its index_put rule, indexing's backward, fails in
-        # some); the same rows
-        return F.embedding(tokens, table)
+        # placed over a mesh: each process's block of vocabulary rows,
+        # summed (DTensor's own rules for indexing and for the embedding
+        # op fail on some versions); the same rows
+        return sharding.vocab_rows(table, tokens)
     return table[tokens]
 
 

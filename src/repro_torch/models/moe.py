@@ -30,12 +30,20 @@ outputs in the reference's scatter order (ascending slot, i.e.
 ascending expert), rounding to bf16 after every add as the reference's
 bf16 ``y.at[tok].add`` does, instead of an atomic ``index_add_`` whose
 summation order (and so bf16 rounding) varies from run to run.
+
+Placed over a mesh (the reference's expert parallelism: ``param_specs``
+splits each expert's hidden width over ``model``), the gather path runs
+on each process's blocks (:func:`_moe_block_placed`): dispatch on its own
+batch rows, its slices of every expert, and the combine's partial sums
+added over ``model`` in float32.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 
@@ -113,7 +121,11 @@ def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return out.reshape(e, g, c, d).transpose(0, 1)
 
 
-def _moe_block_gather(params: dict, x: torch.Tensor, cfg: ArchConfig):
+def _dispatch(params: dict, x: torch.Tensor, cfg: ArchConfig):
+    """Routing and slot assignment of the gather path: (slots (G, E, C,
+    D) bf16 of the kept entries' tokens, their gates (G, E * C),
+    each token's k slot indices in ascending order (G, S, K; a dropped
+    entry's is the trash slot E * C), expert ids, probabilities)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = capacity(cfg, s)
@@ -142,21 +154,84 @@ def _moe_block_gather(params: dict, x: torch.Tensor, cfg: ArchConfig):
     slot_tok, slot_w = slot_tok[:, :e * c], slot_w[:, :e * c]
 
     xe = torch.gather(x, 1, slot_tok[:, :, None].expand(b, e * c, d))
-    out = _experts(params, xe.reshape(b, e, c, d))
-    out = (out * slot_w.reshape(b, e, c, 1).to(out.dtype)).reshape(
-        b, e * c, d)
-
-    # Combine: each token's entries in ascending slot order (the
-    # reference's scatter order), a bf16 rounding after every add; a
-    # dropped entry reads the zero row appended at slot e*c.
-    out = torch.cat([out, out.new_zeros((b, 1, d))], dim=1)
     dest_of_entry = torch.empty_like(dest).scatter_(1, order, dest)
     tok_dests = dest_of_entry.reshape(b, s, k).sort(dim=-1).values
-    y = torch.zeros((b, s, d), dtype=out.dtype, device=dev)
-    for j in range(k):
+    return xe.reshape(b, e, c, d), slot_w, tok_dests, expert_ix, probs
+
+
+def _gated(out: torch.Tensor, slot_w: torch.Tensor) -> torch.Tensor:
+    """The experts' (G, E, C, D) outputs times their gates, as (G, E * C
+    + 1, D) with a zero row at the trash slot E * C."""
+    b, e, c, d = out.shape
+    out = (out * slot_w.reshape(b, e, c, 1).to(out.dtype)).reshape(
+        b, e * c, d)
+    return torch.cat([out, out.new_zeros((b, 1, d))], dim=1)
+
+
+def _moe_block_gather(params: dict, x: torch.Tensor, cfg: ArchConfig):
+    if isinstance(x, DTensor):
+        return _moe_block_placed(params, x, cfg)
+    b, s, d = x.shape
+    xe, slot_w, tok_dests, expert_ix, probs = _dispatch(params, x, cfg)
+    out = _gated(_experts(params, xe), slot_w)
+    # Combine: each token's entries in ascending slot order (the
+    # reference's scatter order), a bf16 rounding after every add; a
+    # dropped entry reads the zero row at slot e*c.
+    y = torch.zeros((b, s, d), dtype=out.dtype, device=x.device)
+    for j in range(cfg.top_k):
         idx = tok_dests[:, :, j, None].expand(b, s, d)
         y = y + torch.gather(out, 1, idx)
     return y.to(x.dtype), expert_ix, probs
+
+
+#: The dimension of each expert weight that holds the hidden width.
+_HIDDEN_DIM = {"w_up": 2, "w_gate": 2, "w_down": 1}
+
+
+def _moe_block_placed(params: dict, x: DTensor, cfg: ArchConfig):
+    """:func:`_moe_block_gather` of placed tensors, on each process's
+    blocks (``sharding.local_map``): the dispatch (routing, ranks,
+    gather) on its own batch rows with the router whole (dispatch stays
+    group-local, so it moves no token), its slices of every expert's
+    hidden width (the weights' placements; any other split is gathered
+    first).  Where ``model`` splits the hidden width each process holds a
+    partial sum of each token's k slots, added in float32, and the mesh
+    adds the partial sums (a ``Partial`` all-reduce, in float32),
+    rounding once to bf16: one rounding where the one-process combine
+    rounds after every add, within the bf16 bound of it.  With whole
+    experts on every process the rows run the one-process block."""
+    dm = x.device_mesh
+    rows = sharding.row_placements(x)
+    whole = [Replicate()] * dm.ndim
+    names = ("router",) + tuple(_HIDDEN_DIM)
+    w_pl = [whole] + [[p if p == Shard(dim) else Replicate()
+                       for p in _placements(params[name], dm)]
+                      for name, dim in _HIDDEN_DIM.items()]
+    split = [p == Shard(1) for p in w_pl[-1]]        # w_down's hidden dim
+    y_pl = [Partial() if split[i] else rows[i] for i in range(dm.ndim)]
+
+    def run(xl, *ws):
+        p = dict(zip(names, ws))
+        if not any(split):       # whole experts: the one-process block
+            return _moe_block_gather(p, xl, cfg)
+        xe, slot_w, tok_dests, expert_ix, probs = _dispatch(p, xl, cfg)
+        out = _gated(_experts(p, xe), slot_w).float()
+        b, s, d = xl.shape
+        y = torch.zeros((b, s, d), dtype=torch.float32, device=xl.device)
+        for j in range(cfg.top_k):
+            idx = tok_dests[:, :, j, None].expand(b, s, d)
+            y = y + torch.gather(out, 1, idx)
+        return y, expert_ix, probs
+
+    y, expert_ix, probs = sharding.local_map(
+        run, (x,) + tuple(params[n] for n in names), [rows] + w_pl,
+        (y_pl, rows, rows))
+    return y.redistribute(dm, rows).to(x.dtype), expert_ix, probs
+
+
+def _placements(t, dm) -> list:
+    return list(t.placements) if isinstance(t, DTensor) \
+        else [Replicate()] * dm.ndim
 
 
 def _moe_block_einsum(params: dict, x: torch.Tensor, cfg: ArchConfig):

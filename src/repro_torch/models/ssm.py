@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding
@@ -155,7 +156,9 @@ def _conv_tail(x_raw: torch.Tensor, k: int) -> torch.Tensor:
     """The last K-1 raw conv inputs (zeros before the sequence), bf16:
     the decode step's conv buffer after a prefill of ``x_raw``."""
     s = x_raw.shape[1]
-    return F.pad(x_raw, (0, 0, k - 1, 0))[:, s:s + k - 1].to(DTYPE)
+    # a zeros cat, not F.pad, as in the causal conv (placed tensors)
+    zero = torch.zeros_like(x_raw[:, :1]).expand(-1, k - 1, -1)
+    return torch.cat([zero, x_raw], dim=1)[:, s:s + k - 1].to(DTYPE)
 
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -229,7 +232,15 @@ def mamba1_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     dt_in, b_in, c_in = torch.split(dbc, [r, n, n], dim=-1)
     dt = softplus((dt_in @ params["dt_w"]).float() + params["dt_b"].float())
     a = -torch.exp(params["a_log"])
-    y, h_final = _selective_scan(dt, xh, b_in, c_in, a, chunk)
+    # placed over a mesh, the scan runs on each process's own batch rows
+    # with ``a`` whole (its in-place output and per-step states have no
+    # DTensor form)
+    rows = (sharding.row_placements(dt) if isinstance(dt, DTensor)
+            else None)
+    whole = None if rows is None else [Replicate()] * len(rows)
+    y, h_final = sharding.local_map(
+        lambda *t: _selective_scan(*t, chunk), (dt, xh, b_in, c_in, a),
+        [rows] * 4 + [whole], rows)
     # compiled, XLA reads the unrounded silu product here unless padding
     # sliced it; op by op it reads the bf16 xh
     unrounded = fused and x.shape[1] % chunk == 0
@@ -246,7 +257,11 @@ def mamba1_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
                   fused: bool = False):
     """One token.  x: (B, 1, D); h: (B, di, N) float32; conv_buf: (B, K-1,
     di) bf16 — both updated IN PLACE.  Returns (out (B, 1, D), h,
-    conv_buf); ``fused`` as for :func:`mamba1_block`."""
+    conv_buf); ``fused`` as for :func:`mamba1_block`.  A placed state is
+    stepped on each process's rows (:func:`_decode_on_rows`)."""
+    if isinstance(h, DTensor):
+        return _decode_on_rows(mamba1_decode, params, x, cfg, h, conv_buf,
+                               fused)
     r, n = dt_rank(cfg), cfg.ssm_state
     mm = _mm_f32 if fused else torch.mm
     xh = x[:, 0] @ params["wx"]
@@ -368,7 +383,11 @@ def mamba2_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
     """One SSD token.  x: (B, 1, D); hstate: (B, H, P, N) float32;
     conv_buf: (B, K-1, di + 2N) bf16 — both updated IN PLACE.  Returns
     (out (B, 1, D), hstate, conv_buf); ``fused`` as for
-    :func:`mamba1_block`."""
+    :func:`mamba1_block`.  A placed state is stepped on each process's
+    rows (:func:`_decode_on_rows`)."""
+    if isinstance(hstate, DTensor):
+        return _decode_on_rows(mamba2_decode, params, x, cfg, hstate,
+                               conv_buf, fused)
     bsz = x.shape[0]
     di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
     p = cfg.ssm_head_dim
@@ -390,3 +409,23 @@ def mamba2_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
     out = (_gated_norm(y, z[:, None, :], params["norm_w"], fused)
            @ params["out_proj"])
     return out, hstate, conv_buf
+
+
+def _decode_on_rows(step, params: dict, x, cfg: ArchConfig, state,
+                    conv_buf, fused: bool):
+    """A decode ``step`` of a placed SSM state (``cache_specs`` splits
+    only its batch rows): each process runs the plain step on its own
+    rows with the block's parameters gathered whole, updating its blocks
+    of the state and the conv taps in place; the output is placed as
+    the state's rows are."""
+    dm, rows = state.device_mesh, list(state.placements)
+    if any(p not in (Shard(0), Replicate()) for p in rows) or \
+            list(conv_buf.placements) != rows:
+        raise ValueError(f"an SSM state placed {rows}, its conv taps "
+                         f"{list(conv_buf.placements)}: only batch rows may "
+                         "be split")
+    full = {k: sharding.replicated_local(v) for k, v in params.items()}
+    out = step(full, x.redistribute(dm, rows).to_local(), cfg,
+               state.to_local(), conv_buf.to_local(), fused=fused)[0]
+    return (DTensor.from_local(out, dm, rows, run_check=False), state,
+            conv_buf)

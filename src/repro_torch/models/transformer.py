@@ -32,16 +32,28 @@ group and (B, S, KV, dh) in the remainder, a local block's a ring of
 ``min(max_seq, sliding_window)`` slots; an SSM block's ``{"h", "conv"}``
 (float32 state, bf16 conv taps).  KV trees hold the attention blocks
 only.  The reference's ``lax.scan`` over the groups is a Python loop.
+
+Placed over a ``torch.distributed`` mesh (``DTensor`` parameters,
+``dist/sharding.py``), :func:`prefill` and :func:`decode_step` serve on
+every process of the mesh: the prompt's rows are placed by
+``batch_specs``, the caches by ``cache_specs`` (:func:`init_cache`), and
+the steps run under DTensor's ``implicit_replication``, as the train
+step does.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA1,
                                       MAMBA2, SHARED_ATTN, ArchConfig)
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.models import layers, moe, ssm
 from repro_torch.pytree import tree_leaves, tree_map
 
@@ -227,9 +239,29 @@ def _device_of(params: dict) -> torch.device:
     return params["final_ln"].device
 
 
-def _tokens(tokens, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
-                           else tokens, device=device).long()
+def _mesh_of(params: dict):
+    """The ``DeviceMesh`` the parameters are placed over, or None."""
+    leaf = params["final_ln"]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def _placed(params: dict):
+    """DTensor's ``implicit_replication`` for placed parameters (the plain
+    tensors a step builds join them as replicated), else nothing."""
+    return (implicit_replication() if _mesh_of(params) is not None
+            else contextlib.nullcontext())
+
+
+def _tokens(tokens, device, mesh=None) -> torch.Tensor:
+    """Token ids as int64 on ``device``; over a ``mesh``, placed by their
+    rows (``sharding.batch_specs``)."""
+    if isinstance(tokens, DTensor):
+        return tokens.long()
+    t = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
+                        else tokens, device=device).long()
+    if mesh is None:
+        return t
+    return sharding.place_leaf(t, sharding.batch_specs(t, mesh), mesh)
 
 
 def _embed_scaled(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
@@ -251,7 +283,8 @@ def _input_embeds(params: dict, cfg: ArchConfig, batch: dict):
         e = e.to(dev) if torch.is_tensor(e) else _to_tensor(e, dev)
         parts.append(e.to(DTYPE))
     if "tokens" in batch:
-        parts.append(_embed_scaled(params, cfg, _tokens(batch["tokens"], dev)))
+        parts.append(_embed_scaled(params, cfg, _tokens(
+            batch["tokens"], dev, _mesh_of(params))))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     b, s, _ = x.shape
     return x, torch.arange(s, device=dev)[None].expand(b, s)
@@ -287,13 +320,23 @@ def _apply_block(p: dict, cfg: ArchConfig, kind: str, key: str,
     fused = g is not None
     h = layers.rms_norm(x32 if fused and key != "b0" else x,
                         p["ln1"]).to(DTYPE)
-    s1 = x.float() + mix(h).float()
+    s1 = x.float() + _like(mix(h).float(), x)
     if not _is_attn(kind):
         return s1.to(DTYPE), s1 if fused else None
     x = s1.to(DTYPE)
     h2 = layers.rms_norm(s1 if fused else x, p["ln2"]).to(DTYPE)
-    s2 = x.float() + _ffn(p, h2, cfg).float()
+    s2 = x.float() + _like(_ffn(p, h2, cfg).float(), x)
     return s2.to(DTYPE), s2 if fused else None
+
+
+def _like(t: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """A block's (float32) output in the residual stream's placements (a
+    partial sum reduced, a split sequence gathered), where both are
+    placed: the stream keeps its layout from block to block."""
+    if isinstance(t, DTensor) and isinstance(residual, DTensor) and \
+            t.placements != residual.placements:
+        return t.redistribute(residual.device_mesh, residual.placements)
+    return t
 
 
 def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer, *,
@@ -374,32 +417,43 @@ def train_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 # Decode caches, prefill and decode.
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device: str | torch.device = "cuda") -> dict:
-    device = resolve_device(device)
-    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
-                                             device=device)
-
+def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The decode cache's tree with ``(shape, dtype)`` leaves."""
     def block(kind, lead):
         _check_kind(kind)
         k1 = cfg.ssm_conv - 1
         if kind == MAMBA1:
             di = ssm.d_inner(cfg)
-            return {"h": zeros(lead + (batch, di, cfg.ssm_state),
-                               torch.float32),
-                    "conv": zeros(lead + (batch, k1, di), DTYPE)}
+            return {"h": (lead + (batch, di, cfg.ssm_state), torch.float32),
+                    "conv": (lead + (batch, k1, di), DTYPE)}
         if kind == MAMBA2:
             di = ssm.d_inner(cfg) + 2 * cfg.ssm_state
-            return {"h": zeros(lead + (batch, ssm.m2_heads(cfg),
-                                       cfg.ssm_head_dim, cfg.ssm_state),
-                               torch.float32),
-                    "conv": zeros(lead + (batch, k1, di), DTYPE)}
+            return {"h": (lead + (batch, ssm.m2_heads(cfg),
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                          torch.float32),
+                    "conv": (lead + (batch, k1, di), DTYPE)}
         slots = (min(max_seq, cfg.sliding_window) if kind == ATTN_LOCAL
                  else max_seq)                # a local block keeps a ring
         shape = lead + (batch, slots, cfg.n_kv_heads, cfg.d_head)
-        return {"k": zeros(shape, DTYPE), "v": zeros(shape, DTYPE)}
+        return {"k": (shape, DTYPE), "v": (shape, DTYPE)}
 
     return _stacked(cfg, block)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device: str | torch.device = "cuda", *,
+               device_mesh=None) -> dict:
+    """Zero decode caches on ``device``; with ``device_mesh``, placed by
+    ``sharding.cache_specs``, each process making only its own block."""
+    device = resolve_device(device)
+    shapes = cache_shapes(cfg, batch, max_seq)
+    if device_mesh is None:
+        return tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1],
+                                               device=device), shapes)
+    specs = sharding.cache_specs(shapes, device_mesh)
+    return tree_map(lambda sd, sp: sharding.zeros(sd[0], sd[1], sp,
+                                                  device_mesh, device),
+                    shapes, specs)
 
 
 def resume_supported(cfg: ArchConfig) -> bool:
@@ -420,7 +474,13 @@ def _write_cache(bc: dict, k_all: torch.Tensor, v_all: torch.Tensor,
     far: the first ``s_tot`` slots of a global cache, or the last
     ``min(W, s_tot)`` tokens at their ring slots ``position % W``."""
     s_tot = k_all.shape[1]
-    if local:
+    if isinstance(bc["k"], DTensor):       # each process writes its block
+        w = bc["k"].shape[1]
+        take = min(w, s_tot) if local else s_tot
+        slots = [t % w for t in range(s_tot - take, s_tot)]
+        layers.write_slots(bc["k"], slots, k_all[:, s_tot - take:])
+        layers.write_slots(bc["v"], slots, v_all[:, s_tot - take:])
+    elif local:
         w = bc["k"].shape[1]
         take = min(w, s_tot)
         slots = torch.arange(s_tot - take, s_tot, device=k_all.device) % w
@@ -449,21 +509,35 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
         raise NotImplementedError(
             f"prefix resume needs attention-only layers; {cfg.name} "
             "has recurrent (SSM) state that chunk slabs cannot restore")
+    with _placed(params):
+        return _prefill(params, cfg, batch, max_seq, prefix_kv, return_kv)
+
+
+def _prefill(params, cfg, batch, max_seq, prefix_kv, return_kv):
     dev = _device_of(params)
+    mesh = _mesh_of(params)
     x, positions = _input_embeds(params, cfg, batch)
     b, s, _ = x.shape
     p_len = 0 if prefix_kv is None else prefix_length(prefix_kv)
     positions = positions + p_len
-    cache = init_cache(cfg, b, max_seq, dev)
+    cache = init_cache(cfg, b, max_seq, dev, device_mesh=mesh)
 
     def kv_block(kind, lead):
         if not _is_attn(kind):
             return None
         shape = lead + (b, s, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.empty(shape, dtype=DTYPE, device=dev),
-                "v": torch.empty(shape, dtype=DTYPE, device=dev)}
+        return {"k": (shape, DTYPE), "v": (shape, DTYPE)}
 
-    kv_out = _stacked(cfg, kv_block) if return_kv else None
+    kv_out = None
+    if return_kv:
+        shapes = _stacked(cfg, kv_block)
+        if mesh is None:
+            kv_out = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1],
+                                                     device=dev), shapes)
+        else:                               # laid out as the cache is
+            kv_out = tree_map(
+                lambda sd, sp: sharding.zeros(sd[0], sd[1], sp, mesh, dev),
+                shapes, sharding.cache_specs(shapes, mesh))
 
     def mixer(key, g, kind, p):
         bc = _block(cache, key, g)
@@ -471,8 +545,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
             def fill_state(h):
                 out, h_final, tail = _SSM_BLOCK[kind](
                     p["ssm"], h, cfg, return_state=True, fused=g is not None)
-                bc["h"].copy_(h_final)
-                bc["conv"].copy_(tail)
+                _assign(bc["h"], h_final)
+                _assign(bc["conv"], tail)
                 return out
             return fill_state
         local = kind == ATTN_LOCAL
@@ -495,9 +569,9 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
             _write_cache(bc, k_all, v_all, local)
             if return_kv:
                 kv = _block(kv_out, key, g)
-                kv["k"].copy_(k)
-                kv["v"].copy_(v)
-            return out.reshape(b, s, -1) @ p["attn"]["wo"]
+                _assign(kv["k"], k)
+                _assign(kv["v"], v)
+            return layers.out_proj(out, p["attn"]["wo"])
         return attend
 
     x = _run_stack(params, cfg, x, mixer)
@@ -507,15 +581,33 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_seq: int, *,
     return logits, cache
 
 
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a placed ``dst`` takes ``src`` brought to its
+    placements, block by block."""
+    if isinstance(dst, DTensor):
+        if not isinstance(src, DTensor):
+            src = DTensor.from_local(src, dst.device_mesh,
+                                     [Replicate()] * dst.device_mesh.ndim,
+                                     run_check=False)
+        dst.to_local().copy_(src.redistribute(dst.device_mesh,
+                                              dst.placements).to_local())
+    else:
+        dst.copy_(src)
+
+
 def decode_step(params: dict, cfg: ArchConfig, tokens, cache: dict,
                 pos: int):
     """tokens: (B, 1) int; pos: the new token's position.  Returns
     (logits (B, V) float32, cache), the cache updated in place: a global
     block writes slot ``pos``, a local block its ring slot ``pos % W``,
     an SSM block its state and conv taps."""
+    with _placed(params):
+        return _decode_step(params, cfg, tokens, cache, int(pos))
+
+
+def _decode_step(params, cfg, tokens, cache, pos):
     dev = _device_of(params)
-    x = _embed_scaled(params, cfg, _tokens(tokens, dev))
-    pos = int(pos)
+    x = _embed_scaled(params, cfg, _tokens(tokens, dev, _mesh_of(params)))
 
     def mixer(key, g, kind, p):
         bc = _block(cache, key, g)

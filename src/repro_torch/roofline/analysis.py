@@ -9,9 +9,14 @@ Three terms per step, in SECONDS (per step, per device):
 drawn against a :class:`Machine` profile.  The card's profile is NVIDIA's
 H100 SXM5 datasheet (dense bf16 tensor rate, HBM3 bandwidth, NVLink 4).
 
-Not ported: ``collective_bytes`` and ``parse_hlo_computations``, which
-parse XLA's HLO text.  The port produces no HLO; the bytes of its NCCL
-calls come with multi-device support.
+:func:`collective_bytes` counts the collectives a step placed over a
+mesh issues on this process (DTensor's redistributions, the functional
+collectives of ``torch.ops._c10d_functional``, and the raw
+``torch.distributed`` calls, ``torch.ops.c10d``), by the reference's
+kinds and its definition of their bytes: each collective's OUTPUT bytes
+on one device.  There is no HLO to parse, so its counterpart's
+``parse_hlo_computations`` is not ported, and no loop trip count is
+needed: an eager step issues every collective of every trip.
 """
 from __future__ import annotations
 
@@ -19,6 +24,9 @@ import dataclasses
 import os
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 #: Env knob selecting the machine profile by name (``MACHINES`` keys).
 MACHINE_ENV = "REPRO_MACHINE"
@@ -72,6 +80,86 @@ def current_machine() -> Machine:
     raise RuntimeError(
         f"no machine profile for the card {card!r}; set {MACHINE_ENV} to "
         f"one of {sorted(MACHINES)} if its rates apply")
+
+
+#: The reference's collective kinds (XLA's op names).
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+#: The functional (``_c10d_functional``) and raw (``c10d``) collectives
+#: by the reference's kinds.  XLA has no broadcast: the one-to-all copy a
+#: launcher sends from process 0 is counted with the point-to-point
+#: sends, ``collective-permute``.
+_KIND = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+         "all_reduce_coalesced": "all-reduce",
+         "all_reduce_coalesced_": "all-reduce",
+         "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+         "all_gather_into_tensor": "all-gather",
+         "all_gather_into_tensor_out": "all-gather",
+         "all_gather_into_tensor_coalesced": "all-gather",
+         "allgather_": "all-gather", "_allgather_base_": "all-gather",
+         "allgather_into_tensor_coalesced_": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "reduce_scatter_tensor_coalesced": "reduce-scatter",
+         "reduce_scatter_": "reduce-scatter",
+         "_reduce_scatter_base_": "reduce-scatter",
+         "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+         "alltoall_base_": "all-to-all",
+         "broadcast": "collective-permute", "broadcast_": "collective-permute"}
+#: ops of the two namespaces that move no tensor between processes
+_NO_MOVE = ("wait_tensor", "_wrap_tensor_autograd", "barrier",
+            "monitored_barrier_")
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """A dispatch mode that counts the functional collectives run under
+    it on this process: ``counts`` and output ``nbytes`` by the
+    reference's kinds.  An op on placed tensors (``DTensor``) is left to
+    DTensor (``NotImplemented``), so that the collectives its sharding
+    rules issue inside the op come through this mode too; a collective
+    of a kind the reference does not name raises."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.nbytes = dict.fromkeys(COLLECTIVES, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        self.record(func, out)
+        return out
+
+    def record(self, func, out) -> None:
+        """Count ``func`` with its output ``out`` if it is a collective."""
+        if func.namespace not in ("_c10d_functional", "c10d"):
+            return
+        name = func._overloadpacket.__name__
+        if name in _NO_MOVE:
+            return
+        kind = _KIND.get(name)
+        if kind is None:
+            raise ValueError(f"collective {func} has no reference kind")
+        self.counts[kind] += 1
+        self.nbytes[kind] += sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(out)
+                                 if isinstance(t, torch.Tensor))
+
+    def as_dict(self) -> dict:
+        """The reference's ``collective_bytes`` dict: output bytes by
+        kind, and their ``total``."""
+        return {**self.nbytes, "total": sum(self.nbytes.values())}
+
+
+def collective_bytes(fn, *args) -> dict:
+    """Output bytes of the collectives ``fn(*args)`` issues on this
+    process, by kind, and their ``total`` (the reference's dict; it reads
+    them from compiled HLO, the port runs the step once under
+    :class:`CollectiveCounter`)."""
+    with CollectiveCounter() as counter:
+        fn(*args)
+    return counter.as_dict()
 
 
 @dataclasses.dataclass

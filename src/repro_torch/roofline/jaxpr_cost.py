@@ -30,15 +30,23 @@ configuration: the meta device computes each op's output shape in
 Python (tens of microseconds an op), and a step repeats the same few
 ops thousands of times (a scan's per-token update, a chunk loop).
 
+A step placed over a mesh (``DTensor`` inputs) is counted by
+:class:`RankCostMode` as one process runs it: the FLOPs and bytes of the
+ops on its own blocks, and the collectives it issues.
+
 The reference's jaxpr walker (``jaxpr_flops`` and its per-primitive
 rules) has no counterpart: there is no jaxpr to walk.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+from repro_torch.roofline.analysis import CollectiveCounter
 
 _aten = torch.ops.aten
 # Ops that touch no element: allocation and metadata.
@@ -48,11 +56,19 @@ _NO_DATA = {_aten.empty.memory_format, _aten.empty_strided.default,
             _aten.alias.default, _aten.is_same_size.default}
 
 
+def _op_bytes(func, args, kwargs, out) -> int:
+    """The bytes of an op's tensor arguments and outputs (``numel x
+    element size``; an in-place op's operand is read and written, so it
+    counts twice); 0 for views and :data:`_NO_DATA` ops."""
+    if func.is_view or func in _NO_DATA:
+        return 0
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves((args, kwargs, out))
+               if isinstance(t, torch.Tensor))
+
+
 class ByteCounterMode(TorchDispatchMode):
-    """Sums the bytes of each aten op's tensor arguments and outputs
-    (``numel x element size``; an in-place op's operand is read and
-    written, so it counts twice).  Views and :data:`_NO_DATA` ops are
-    skipped."""
+    """Sums :func:`_op_bytes` over every aten op run under it."""
 
     def __init__(self):
         super().__init__()
@@ -60,10 +76,39 @@ class ByteCounterMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not func.is_view and func not in _NO_DATA:
-            for t in tree_leaves((args, kwargs, out)):
-                if isinstance(t, torch.Tensor):
-                    self.total += t.numel() * t.element_size()
+        self.total += _op_bytes(func, args, kwargs, out)
+        return out
+
+
+class RankCostMode(CollectiveCounter):
+    """What one process of a mesh computes in a step placed over it: the
+    FLOPs (``torch.utils.flop_counter``'s formulas) and bytes
+    (:func:`_op_bytes`) of the ops on its own blocks, and the collectives
+    it issues (:class:`~repro_torch.roofline.analysis.CollectiveCounter`,
+    whose bytes are not counted as memory traffic).  Ops on placed
+    tensors are left to DTensor, which runs them as ops on the blocks;
+    the ops DTensor runs on fake tensors to propagate shapes compute
+    nothing and are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out
+        if func.namespace in ("_c10d_functional", "c10d"):
+            self.record(func, out)
+            return out
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        self.bytes += _op_bytes(func, args, kwargs, out)
         return out
 
 
@@ -101,6 +146,8 @@ class MetaShapeCache(TorchDispatchMode):
         self._outputs = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # DTensor runs it on its blocks
         kwargs = kwargs or {}
         schema = func._schema
         if func.is_view or schema.is_mutable or any(
@@ -129,6 +176,16 @@ def step_cost(fn, *args) -> tuple[float, float]:
     with FlopCounterMode(display=False) as flops, ByteCounterMode() as nbytes:
         fn(*args)
     return float(flops.get_total_flops()), float(nbytes.total)
+
+
+def rank_cost(fn, *args) -> dict:
+    """One process's (FLOPs, bytes, collective bytes by kind) of
+    ``fn(*args)`` on placed inputs, run once under
+    :class:`RankCostMode`."""
+    with RankCostMode() as mode:
+        fn(*args)
+    return {"flops": float(mode.flops), "bytes": float(mode.bytes),
+            "collectives": mode.as_dict()}
 
 
 def step_flops(fn, *args) -> float:

@@ -172,12 +172,18 @@ class ServeRouter:
         before the one defer retry).
     now_fn : callable
         Clock injection for tests.
+    idle_fn, idle_s : callable, float
+        A worker that has waited ``idle_s`` seconds without a request
+        calls ``idle_fn()`` (outside the lock), and again after each
+        further ``idle_s``: a mesh's process 0 keeps the other
+        processes' waits alive with it.  ``None`` never calls it.
     """
 
     def __init__(self, admit_q: AdmitQueue, *, prefill_fn, decode_fn=None,
                  n_workers: int = 2, max_queue: int = 64,
                  batch_window_s: float = 0.002, max_batch_rows: int = 8,
-                 retry_wait_s: float = 0.05, now_fn=time.monotonic):
+                 retry_wait_s: float = 0.05, now_fn=time.monotonic,
+                 idle_fn=None, idle_s: float | None = None):
         if n_workers < 1:
             raise ValueError(f"ServeRouter n_workers={n_workers}: expected "
                              ">= 1")
@@ -193,6 +199,8 @@ class ServeRouter:
         self.max_batch_rows = max_batch_rows
         self.retry_wait_s = retry_wait_s
         self._now = now_fn
+        self.idle_fn = idle_fn
+        self.idle_s = None if idle_fn is None else idle_s
         self.stats = RouterStats()
         self._cv = threading.Condition()
         self._queue: collections.deque[_Pending] = collections.deque()
@@ -288,11 +296,15 @@ class ServeRouter:
 
     # ------------------------------------------------------------------
     def _next_batch(self) -> list[_Pending] | None:
-        """Pop the next micro-batch (None = stopped and drained): the
-        head request plus any same-shape requests arriving within
-        ``batch_window_s``, capped at ``max_batch_rows`` rows."""
+        """Pop the next micro-batch (None = stopped and drained; an empty
+        list = ``idle_s`` passed without one): the head request plus any
+        same-shape requests arriving within ``batch_window_s``, capped at
+        ``max_batch_rows`` rows."""
         with self._cv:
-            self._cv.wait_for(lambda: self._queue or self._stop)
+            if not self._cv.wait_for(lambda: self._queue or self._stop,
+                                     timeout=self.idle_s):
+                return []
+
             if not self._queue:
                 return None              # stopping and fully drained
             head = self._queue.popleft()
@@ -385,7 +397,10 @@ class ServeRouter:
             batch = self._next_batch()
             if batch is None:
                 return
-            self._serve_batch(batch)
+            if batch:
+                self._serve_batch(batch)
+            else:
+                self.idle_fn()
 
 
 # ---------------------------------------------------------------------------

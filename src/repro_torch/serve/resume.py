@@ -22,6 +22,13 @@ attention layers resume.
 
 Slabs stay as tensors on the model's device (the reference copied them to
 host numpy arrays); ``KVSlabStore.resident_bytes`` counts the same bytes.
+
+Over a mesh (placed parameters, one process per mesh position, each with
+its own index replica and slab store) a slab is a ``DTensor``: this
+call's KV rows are gathered over the data axes (raw collectives), so
+every process holds every row of its own KV heads, and a slab keeps them
+placed so.  A restored prefix is concatenated from the slabs and placed
+back by ``cache_specs``, its rows split as the cache's are.
 """
 from __future__ import annotations
 
@@ -31,13 +38,16 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.models import transformer
-from repro_torch.pytree import tree_map
+from repro_torch.pytree import tree_leaves, tree_map
 from repro_torch.serve.kv_index import CHUNK_TOKENS, MonarchKVIndex
-from repro_torch.serve.step import make_decode_step, make_resume_prefill_step
+from repro_torch.serve.step import (greedy, make_decode_step,
+                                    make_resume_prefill_step)
 
 
 @dataclasses.dataclass
@@ -66,6 +76,25 @@ def _concat(parts: list, axis_from_end: int) -> dict:
         lambda *xs: torch.cat(xs, dim=xs[0].dim() - axis_from_end), *parts)
 
 
+def _placed_as_cache(kv: dict) -> dict:
+    """Placed slabs concatenated into a prefix (every row on every
+    process) placed as the decode cache is (``cache_specs``: rows over
+    the data axes, KV heads over ``model``); no data moves."""
+    leaf = tree_leaves(kv)[0]
+    if not isinstance(leaf, DTensor):
+        return kv
+    dm = leaf.device_mesh
+    specs = sharding.cache_specs(kv, dm)
+    return tree_map(lambda a, sp: a.redistribute(
+        dm, sharding.placements(sp, dm.mesh_dim_names)), kv, specs)
+
+
+def tokens_to_host(tokens: torch.Tensor) -> np.ndarray:
+    """(B, T) decoded tokens as an int32 host array, every row on every
+    process (a placed array is gathered with raw collectives)."""
+    return sharding.full(tokens).cpu().numpy().astype(np.int32)
+
+
 class PrefixResumeEngine:
     """Prefill/decode pair that serves prefix-cache hits from KV slabs.
 
@@ -73,11 +102,12 @@ class PrefixResumeEngine:
     attention-only; ``max_seq`` bounds prompt + decode; ``index`` supplies
     the fingerprint scheme (must be ``"prefix"``) and the slab store.
     ``device`` is where the engine runs (default ``"cuda"``, which raises
-    without a card) and must be where ``params`` are."""
+    without a card) and must be where ``params`` are.  ``on_logits``, if
+    given, sees the logits of every greedy step before its argmax."""
 
     def __init__(self, params: dict, cfg: ArchConfig, *, max_seq: int,
                  index: MonarchKVIndex, decode_tokens: int = 8,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", on_logits=None):
         if not transformer.resume_supported(cfg):
             raise NotImplementedError(
                 f"prefix resume needs attention-only layers; {cfg.name} "
@@ -96,6 +126,8 @@ class PrefixResumeEngine:
         if self.device.type == "cuda" and self.device.index is None:
             # "cuda" is the current card, where params made for "cuda" live
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # a placed parameter reports its block's device: this process's
+        # card of the mesh
         if params["final_ln"].device != self.device:
             raise ValueError(f"params live on {params['final_ln'].device}, "
                              f"engine device is {self.device}")
@@ -106,7 +138,8 @@ class PrefixResumeEngine:
         self.store = index.slab_store
         self.decode_tokens = decode_tokens
         self._prefill = make_resume_prefill_step(cfg, max_seq)
-        self._decode = make_decode_step(cfg)
+        self._decode = make_decode_step(cfg, on_logits)
+        self.on_logits = on_logits
         self.resumed_chunks = 0          # served from slabs, cumulative
         self.computed_chunks = 0         # recomputed, cumulative
         # Serving workers share one engine: every request gets its own
@@ -146,8 +179,10 @@ class PrefixResumeEngine:
                 _concat([self.store.get(int(fps[r, k])) for k in range(run)],
                         3)
                 for r in range(b)], 4)
+            prefix_kv = _placed_as_cache(prefix_kv)
         logits, cache, kv_suffix = self._prefill(
             self.params, {"tokens": toks[:, p_len:]}, prefix_kv)
+        kv_suffix = tree_map(sharding.gather_rows, kv_suffix)
         slabs: dict[int, Any] = {}
         for r in range(b):
             for c in range(run, n_chunks):
@@ -177,14 +212,16 @@ class PrefixResumeEngine:
             raise ValueError(
                 f"decode of {n} tokens from position {pos} overflows "
                 f"max_seq={self.max_seq}")
-        nxt = torch.argmax(logits, dim=-1)[:, None]
+        if self.on_logits is not None:
+            self.on_logits(logits)
+        nxt = greedy(logits)
         outs = []
         for t in range(n):
             outs.append(nxt)
             if t + 1 < n:
                 nxt, _, cache = self._decode(self.params, cache, nxt,
                                              pos + t)
-        return torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
+        return tokens_to_host(torch.cat(outs, dim=1))
 
     def request_fns(self, n_tokens: int | None = None):
         """(prefill_fn, decode_fn) pair shaped for ``run_request_loop``;

@@ -1,12 +1,25 @@
 """Serving steps: prefill and single-token greedy decode (port of
 ``repro/serve/step.py``).  PyTorch runs eagerly, so these are plain
-closures over the model functions."""
+closures over the model functions; on placed parameters (a mesh) they
+run on placed tensors as the model functions do."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models import transformer
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The (B, 1) argmax tokens of (B, V) logits; placed logits have
+    their vocabulary gathered first (DTensor's argmax over a split
+    dimension fails on some versions), and the tokens keep their rows'
+    placements."""
+    if isinstance(logits, DTensor):
+        logits = sharding.replicate_dim(logits, -1)
+    return torch.argmax(logits, dim=-1)[:, None]
 
 
 def make_prefill_step(cfg: ArchConfig, max_seq: int):
@@ -26,12 +39,15 @@ def make_resume_prefill_step(cfg: ArchConfig, max_seq: int):
     return resume_prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, on_logits=None):
+    """A greedy decode step; ``on_logits(logits)``, if given, sees each
+    step's logits before the argmax."""
     def serve_step(params, cache, tokens, pos):
         """tokens: (B, 1); pos: int.  Returns (next_tokens (B, 1) int64,
         logits (B, V) float32, cache updated in place)."""
         logits, cache = transformer.decode_step(params, cfg, tokens, cache,
                                                 pos)
-        nxt = torch.argmax(logits, dim=-1)[:, None]
-        return nxt, logits, cache
+        if on_logits is not None:
+            on_logits(logits)
+        return greedy(logits), logits, cache
     return serve_step

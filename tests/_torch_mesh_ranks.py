@@ -10,7 +10,9 @@ a checkpoint of yi-9b's written by one process.  The rank places each
 state by ``state_specs`` (its blocks as ``{arch}/block/...``), runs one
 step of every case of ``_ref_train_mesh_dump.CASES`` from the placed
 initial state (metrics as ``{case}/metric/...``; rank 0 also the gathered
-state as ``{case}/after/...``), saves the placed state after the ``yi``
+state as ``{case}/after/...``; the ``yi`` step's collectives by kind,
+``collectives/count`` and ``collectives/bytes``, counted by
+:func:`step_collectives`), saves the placed state after the ``yi``
 step to ``WORKDIR/ckpt_mesh`` with every rank, restores ``ckpt_one`` and
 places it (``restored/block/...``), resumes ``ckpt_mesh`` elastically
 (``WORKDIR/scale_events.jsonl``), and runs the int8-compressed sum over
@@ -44,6 +46,17 @@ def tree_of(flat: dict, prefix: str) -> dict:
             node = node.setdefault(k, {})
         node[last] = v
     return out
+
+
+def step_collectives(step, state, batch) -> tuple:
+    """``step(state, batch)`` under ``analysis.CollectiveCounter``: its
+    result, and the collectives it issued on this process as (count,
+    output bytes) arrays in the order of ``analysis.COLLECTIVES``."""
+    from repro_torch.roofline.analysis import COLLECTIVES, CollectiveCounter
+    with CollectiveCounter() as counter:
+        result = step(state, batch)
+    return result, (np.array([counter.counts[k] for k in COLLECTIVES]),
+                    np.array([counter.nbytes[k] for k in COLLECTIVES]))
 
 
 def main(rank: int, port: int, workdir: str) -> None:
@@ -89,8 +102,11 @@ def main(rank: int, port: int, workdir: str) -> None:
         batch = {k: torch.from_numpy(v) for k, v in
                  ref.case_batch(pipeline, name, cfg.vocab_size).items()}
         batch = sharding.place(batch, sharding.batch_specs(batch, dm), dm)
-        state, metrics = step_mod.make_train_step(
-            cfg, opt.OptConfig(), mb)(placed(arch), batch)
+        step = step_mod.make_train_step(cfg, opt.OptConfig(), mb)
+        (state, metrics), (count, nbytes) = step_collectives(
+            step, placed(arch), batch)
+        if name == "yi":
+            out["collectives/count"], out["collectives/bytes"] = count, nbytes
         for k, v in metrics.items():
             out[f"{name}/metric/{k}"] = v.numpy()
         full = sharding.gather(state)         # every rank joins

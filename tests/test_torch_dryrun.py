@@ -2,15 +2,19 @@
 shapes and dtypes for all 40 cells, the analytic input bytes of every
 runnable cell against the reference's ``_analytic_device_bytes`` on four
 meshes, the meta-device FLOP and byte counts against the same step on the
-CPU, the layer-group extrapolation against a full trace, and
-``launch/dryrun.py``'s record and mesh options.  Every comparison is
-exact."""
+CPU, the layer-group extrapolation against a full trace,
+``launch/dryrun.py``'s record, its production meshes' records on a fake
+world, and the ``opt`` variants' specs against the reference's.  Every
+comparison is exact."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,7 +33,9 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import Mesh
 from repro_torch.pytree import tree_map
-from repro_torch.roofline import jaxpr_cost
+from repro_torch.roofline import analysis, jaxpr_cost
+
+ROOT = Path(__file__).resolve().parents[1]
 
 MESHES = {
     "host": (("data", "model"), (1, 1)),
@@ -239,12 +245,89 @@ def test_run_cell_writes_its_record(tmp_path, monkeypatch):
     assert not skip["runnable"] and "encoder-only" in skip["skip_reason"]
 
 
-@pytest.mark.parametrize("mesh_kind", dryrun.PRODUCTION_MESHES)
-def test_production_meshes_raise_and_name_item_7(mesh_kind, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        dryrun.main(["--arch", "yi-9b", "--shape", "train_4k", "--mesh",
-                     mesh_kind, "--out", str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+#: (mesh, arch, shape) of the production-mesh records: every mesh, a
+#: model-parallel prefill and decode cell, the experts over ``model``,
+#: and zamba2's SSM decode with its shared attention's cache split by
+#: sequence; the archs reduced (a train cell's step is
+#: ``test_torch_mesh_train.py``'s fake-world case)
+PRODUCTION_CELLS = [("single", "yi-9b", "prefill_32k"),
+                    ("multi", "qwen3-moe-30b-a3b", "decode_32k"),
+                    ("optsingle", "yi-9b", "decode_32k"),
+                    ("optmulti", "zamba2-2.7b", "long_500k")]
+_RUN_CELL = """
+import sys
+from repro_torch import configs
+from repro_torch.launch import dryrun
+dryrun.configs.get_arch = lambda name: configs.ARCHS[name].reduced()
+dryrun.main(sys.argv[1:])
+"""
+
+
+@pytest.mark.parametrize("mesh_kind,arch,shape_name", PRODUCTION_CELLS)
+def test_production_mesh_record(mesh_kind, arch, shape_name, tmp_path):
+    """``launch/dryrun.py --mesh`` on a production mesh, in a process of
+    its own (the fake world's group dies with it): the reference's file
+    name and record keys, rank 0's counts, collective bytes by the
+    reference's kinds, none of them 0 in total."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_CELL, "--arch", arch, "--shape",
+         shape_name, "--mesh", mesh_kind, "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    path = tmp_path / f"{mesh_kind}__{arch}__{shape_name}.json"
+    rec = json.loads(path.read_text())
+    assert {"n_devices", "memory", "flops", "hbm_bytes", "collectives",
+            "roofline"} <= set(rec)
+    names, shape = MESHES["multi" if "multi" in mesh_kind else "single"]
+    mesh = Mesh(names, shape)
+    assert rec["n_devices"] == mesh.size
+    cfg = configs.ARCHS[arch].reduced()
+    _, args, in_specs, _ = dryrun.build_cell(
+        cfg, configs.get_shape(shape_name), mesh, mesh_kind.startswith("opt"))
+    assert rec["memory"]["analytic_input_bytes_per_device"] == \
+        dryrun.analytic_input_bytes_per_device(args, in_specs, mesh)
+    assert rec["memory"]["temp_bytes"] is None
+    assert rec["flops"] > 0 and rec["hbm_bytes"] > 0
+    coll = rec["collectives"]
+    assert list(coll) == list(analysis.COLLECTIVES) + ["total"]
+    assert coll["total"] == sum(coll[k] for k in analysis.COLLECTIVES) > 0
+    assert rec["roofline"]["coll_bytes"] == coll["total"]
+    assert f"x {mesh_kind}: inputs" in proc.stdout
+
+
+def _spec_tuples(tree):
+    """A spec tree's leaves as plain tuples, by path."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        else:
+            out[path] = tuple(t)
+    walk(tree, ())
+    return out
+
+
+@pytest.mark.parametrize("arch", FIVE)
+def test_opt_decode_specs_match_reference(arch):
+    """``opt`` decode: the parameters by ``param_specs(two_d_mlp=True)``
+    and the cache by ``cache_specs(seq_shard=True)``, leaf for leaf the
+    reference's on both production meshes."""
+    cfg, r_cfg = configs.get_arch(arch), r_configs.get_arch(arch)
+    shape = configs.get_shape("decode_32k")
+    for names, mesh_shape in (MESHES["single"], MESHES["multi"]):
+        mesh, r_mesh = Mesh(names, mesh_shape), _StubMesh(names, mesh_shape)
+        _, _, (p_specs, c_specs, _, _), _ = dryrun.build_cell(
+            cfg, shape, mesh, opt=True)
+        cache, _, _ = r_specs.decode_arg_specs(r_cfg, r_configs.get_shape(
+            "decode_32k"))
+        assert _spec_tuples(p_specs) == _spec_tuples(r_sharding.param_specs(
+            r_specs.params_shapes(r_cfg), r_mesh, two_d_mlp=True))
+        assert _spec_tuples(c_specs) == _spec_tuples(r_sharding.cache_specs(
+            cache, r_mesh, seq_shard=True))
 
 
 def test_step_bytes_of_a_matmul():

@@ -209,6 +209,26 @@ def test_router_submit_validation_and_busy():
     q.close()
 
 
+def test_router_calls_idle_fn_while_no_request_comes():
+    """An idle worker calls ``idle_fn`` every ``idle_s`` (a mesh's
+    keep-alive), serves requests between the calls, and stops calling
+    it once closed."""
+    q = AdmitQueue(_mk_index(), background=False)
+    idle = threading.Semaphore(0)
+    router = ServeRouter(q, prefill_fn=lambda t, h: None,
+                         decode_fn=lambda t, s: t[:, -1:], n_workers=1,
+                         batch_window_s=0.0, idle_fn=idle.release,
+                         idle_s=0.02)
+    assert idle.acquire(timeout=10)
+    assert router.submit(_toks(0))["tokens"] == [[int(_toks(0)[0, -1])]]
+    assert idle.acquire(timeout=10)
+    router.close()
+    while idle.acquire(timeout=0.1):         # drain calls made before close
+        pass
+    assert not idle.acquire(timeout=0.1)
+    q.close()
+
+
 # ---------------------------------------------------------------------------
 # micro-batcher
 

@@ -28,7 +28,10 @@ Bounds, stated where they are used:
   (the two sums add in other orders), the 8-round mean within 1% of the
   largest exact sum (error feedback keeps it unbiased);
 * checkpoints bit for bit both ways between four ranks and one process,
-  and readable by the reference.
+  and readable by the reference;
+* the collectives of the ``yi`` step that the dry run counts on a fake
+  (2, 2) world (rank 0 of four, ``meta`` blocks) equal those rank 0 of
+  the four processes issued, kind by kind and byte for byte.
 """
 from __future__ import annotations
 
@@ -266,3 +269,50 @@ def test_elastic_resume_records_the_mesh(run):
     assert events[0]["n_devices"] == WORLD
     assert events[0]["mesh_axes"] == {"data": 2, "model": 2}
     assert [int(r["elastic/step"]) for r in run.ranks] == [1] * WORLD
+
+
+_FAKE_STEP = """
+import json, sys
+import torch
+sys.path.insert(0, "tests")
+import _ref_train_mesh_dump as ref
+import _torch_mesh_ranks as ranks
+from repro_torch import configs
+from repro_torch.data import pipeline
+from repro_torch.dist import sharding
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import Mesh, device_mesh, fake_world
+from repro_torch.train import optimizer as opt
+from repro_torch.train import step as step_mod
+
+mesh = Mesh(("data", "model"), (2, 2))
+cfg = configs.get_arch("yi-9b").reduced()
+with fake_world(mesh):
+    dm = device_mesh(mesh, "cpu")
+    state = specs.state_shapes(cfg)
+    state = sharding.place(state, step_mod.state_specs(state, dm), dm)
+    batch = {k: torch.from_numpy(v).to("meta") for k, v in
+             ref.case_batch(pipeline, "yi", cfg.vocab_size).items()}
+    batch = sharding.place(batch, sharding.batch_specs(batch, dm), dm)
+    _, (count, nbytes) = ranks.step_collectives(
+        step_mod.make_train_step(cfg, opt.OptConfig(), 1), state, batch)
+print(json.dumps([count.tolist(), nbytes.tolist()]))
+"""
+
+
+def test_fake_world_counts_the_collectives_of_four_processes(run):
+    """The dry run's count (``launch/mesh.fake_world``,
+    ``analysis.CollectiveCounter``) of the ``yi`` step on a fake (2, 2)
+    world, in a process of its own, against what rank 0 of the four gloo
+    processes issued running the same step."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FAKE_STEP], cwd=ROOT, capture_output=True,
+        text=True, timeout=TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    count, nbytes = json.loads(proc.stdout.strip().splitlines()[-1])
+    real = run.ranks[0]
+    assert count == real["collectives/count"].tolist()
+    assert nbytes == real["collectives/bytes"].tolist()
+    assert sum(count) > 0

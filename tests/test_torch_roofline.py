@@ -254,3 +254,38 @@ def test_train_step_flops_near_reference():
     want = j_cost.step_flops(j_step.make_train_step(jcfg, j_opt.OptConfig()),
                              jstate, jbatch)
     assert 0.975 <= got / want <= 1.0
+
+
+def test_collective_bytes_counts_output_bytes():
+    """``analysis.collective_bytes``, the counterpart of the reference's
+    HLO reader: the OUTPUT bytes of each collective a function issues, by
+    the reference's kinds, raw ``torch.distributed`` calls and functional
+    ones alike (a gloo world of one process); ``barrier`` moves nothing
+    and a broadcast counts as ``collective-permute``."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        x, out = torch.ones(4, 8), torch.empty(4, 8)
+
+        def step():
+            dist.all_reduce(x)
+            dist.all_gather_into_tensor(out, x)
+            dist.broadcast(x, 0)
+            dist.barrier()
+            funcol.wait_tensor(funcol.all_reduce(x.clone(), "sum",
+                                                 dist.group.WORLD))
+
+        got = analysis.collective_bytes(step)
+    finally:
+        dist.destroy_process_group()
+    assert got == {"all-gather": 128, "all-reduce": 256,
+                   "reduce-scatter": 0, "all-to-all": 0,
+                   "collective-permute": 128, "total": 512}

@@ -195,7 +195,9 @@ PORT_EXAMPLES = ("train_lm_torch", "quickstart_torch", "kv_store_torch",
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
-        ROOT / "tests" / "_torch_mesh_ranks.py"] + [
+        ROOT / "tests" / "_torch_mesh_ranks.py",
+        ROOT / "tests" / "_torch_mesh_serve_ranks.py",
+        ROOT / "tests" / "_torch_httpd_diverged.py"] + [
         ROOT / "examples" / f"{name}.py" for name in PORT_EXAMPLES]
 
 
