@@ -122,7 +122,9 @@ code 1) on failure:
    checked by value or its error recorded; the two that kill the process
    on the card's torch (the functional all-gather, so DTensor's Shard ->
    Replicate) run in pairs of their own, their exit codes recorded.  So
-   no model parallelism runs on one card.  (b) zamba2-2.7b at full width
+   the model-parallel step of training, whose backward still takes
+   DTensor's gathers, does not run on one card; serving gathers by raw
+   collectives (phase 3g (c), (d)).  (b) zamba2-2.7b at full width
    and 6 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
    tokens (one row a rank): rank 0 first runs the one-process step of the
    same seed and batch on the card; then ``init_state`` places the state
@@ -139,7 +141,8 @@ code 1) on failure:
    gone and the card's allocated memory must be back to its level before
    phase 3.  Every part runs two ranks on ``cuda:0`` (gloo) under
    ``python -m torch.distributed.run --standalone --nproc-per-node 2``,
-   each rank this script (``--torchrun-child``) calling the launcher.
+   each rank this script (``--torchrun-child``) calling the launcher;
+   (a), (c) and (d) run in turn in one such launch (``SERVE_PARTS``).
    (a) ``launch/serve.serve`` with phase 3's arguments and ``--mesh
    host``: yi-9b at full width and depth placed over ``(2, 1)``, an index
    replica a rank; both ranks' records equal; chunks, hits, resumed
@@ -149,7 +152,7 @@ code 1) on failure:
    logits; each rank's multi-set launches equal its searches; each
    rank's collectives (output bytes), local parameter bytes and peak.
    (b) ``launch/httpd.main --mesh host`` with qwen3-moe-30b-a3b at full
-   width and 8 of its 48 layers, ``--n-shards 4``: 8 requests of two
+   width and 4 of its 48 layers, ``--n-shards 4``: 8 requests of two
    96-token rows (sharing a 48-token prefix) first through the edge's
    request loop in this process, each request's rows served alone at
    B = 1 with the batch's lookups, resume run and admissions (its top-2
@@ -157,9 +160,15 @@ code 1) on failure:
    broadcast batches; each rank serves one row); chunks, hits, resumed
    chunks and admissions equal, tokens under the margin rule; the loop
    run again and at B = 2 are measured beside it; a SIGTERM to torchrun
-   drains both ranks.  (c) yi-9b on ``(1, 2)`` (model parallel) only if
-   phase 3f (a) found the functional all-gather working; else the phase
-   says why not.
+   drains both ranks.  (c) (a) on a ``(1, 2)`` mesh (model parallel:
+   every weight split over ``model`` by ``param_specs``, each gather of
+   the path by the raw all-gather), held as (a) is.  (d) zamba2-2.7b at
+   full width and one layer group (6 layers), resume off, phase 3's
+   requests on ``(1, 2)``: chunks, hits and admissions equal a
+   one-process run of the same config in this process, tokens under its
+   margin rule; one decode step's all-gather bytes a rank equal the
+   activation figure (``ssm_step_gather_bytes``: each Mamba-2 layer
+   gathers its step's activations, no weight), beside the step's time.
 4. The slice-2 kernels against their plain versions, exact equality, then
    timed like phase 2 beside their bounds: the hopscotch lookup (H = 4,
    32, 128 at 2^17 slots with 8,192 queries and at 2^25 slots with 2^20
@@ -244,6 +253,7 @@ CUDA card, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -2102,8 +2112,9 @@ PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
           "dtensor_partial_to_shard", "dtensor_shard0_to_shard1")
 #: probes that kill both ranks with SIGSEGV on the card's torch (2.11,
 #: ROADMAP Queue 3 item 18): the functional all-gather DTensor's Shard ->
-#: Replicate runs, so no all-gather over a mesh dimension, and no model
-#: parallelism, runs on one card.  Each runs in a pair of its own.
+#: Replicate runs, so every gather on the serving path is the raw one
+#: (``dist/sharding.py``) and a model-parallel train step does not run on
+#: one card.  Each runs in a pair of its own.
 PROBES_FATAL = ("functional_all_gather", "dtensor_shard_to_replicate")
 #: what (b) needs: the gradient all-reduce (a Partial -> Replicate)
 MESH_NEEDS = ("all_reduce", "dtensor_partial_to_replicate")
@@ -2486,7 +2497,8 @@ TORCHRUN_CHILD = "--torchrun-child"   # argv[1] of a rank torchrun starts
 #: (a): phase 3's launcher and requests on a (2, 1) mesh
 MESH_SERVE_ARGV = SERVE_ARGV + ["--mesh", "host"]
 #: (b): qwen3-moe-30b-a3b at full width and this depth behind the edge
-MESH_MOE_LAYERS = 8
+#: (8 until phase 3g (c) and (d) needed the script's time)
+MESH_MOE_LAYERS = 4
 #: (b)'s requests are two rows each, one on each rank (data
 #: parallelism).  A rank computes its row as one process computes that
 #: row alone, so the tokens are held to a one-process request loop that
@@ -2497,6 +2509,10 @@ MESH_MOE_LAYERS = 8
 #: measures and prints that difference, and the run-to-run spread of the
 #: B = 1 loop.
 MESH_EDGE_ROWS = 2
+#: (d): zamba2-2.7b at full width and one layer group (6 layers, as
+#: phase 3f's), resume off, phase 3's requests on a (1, 2) mesh
+MP_SSM_ARCH, MP_SSM_LAYERS = "zamba2-2.7b", 6
+MP_SSM_ARGV = ["--arch", MP_SSM_ARCH] + SERVE_ARGV[2:]
 MESH_EDGE_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--device", "cuda",
                   "--host", "127.0.0.1", "--port", "0", "--prompt-len", "96",
                   "--decode-tokens", "8", "--admit-after-reads", "0",
@@ -2546,37 +2562,72 @@ def start_torchrun(args: list, log_path) -> subprocess.Popen:
             env=dict(os.environ, PYTHONUNBUFFERED="1"))
 
 
-def serve_child(np, torch, workdir: str, shape=(MESH_WORLD, 1)) -> dict:
-    """(a) One rank: ``launch/serve.serve`` with MESH_SERVE_ARGV on a
+def serve_child(np, torch, workdir: str, part: str, shape,
+                ssm: bool = False) -> dict:
+    """(a), (c) One rank: ``launch/serve.serve`` with MESH_SERVE_ARGV on a
     ``("data", "model")`` mesh of ``shape`` (the placed model, the rank's
     own index replica, the hit masks checked across the ranks), its
     records, multi-set launches, collectives and peak memory; rank 0
     also the gathered last-token logits of a full prefill of the last
-    batch."""
+    batch (``logits_{part}.npy``; its seconds, and a decode token's,
+    beside).  (d) ``ssm``:
+    MP_SSM_ARGV at MP_SSM_LAYERS layers, and instead of the logits one
+    decode step after a prefill of the last batch, its collectives
+    counted, then a second step timed."""
     from repro_torch.dist import sharding
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
     from repro_torch.pytree import tree_leaves
     from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.serve.step import greedy
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    argv = MP_SSM_ARGV + ["--mesh", "host"] if ssm else MESH_SERVE_ARGV
     with CollectiveCounter() as comms:
-        run = serve.serve(serve.parse_args(MESH_SERVE_ARGV),
-                          mesh=Mesh(("data", "model"), shape))
+        run = serve.serve(serve.parse_args(argv),
+                          mesh=Mesh(("data", "model"), shape),
+                          cfg=mp_ssm_config() if ssm else None)
     launches = read_counts()["xam_search_multiset"]
     idx, eng = run.index, run.engine
-    full = eng.prefill(run.batches[-1], None)
-    logits = sharding.full(full.state["logits"]).float().cpu().numpy()
-    if run.rank == 0:
-        np.save(pathlib.Path(workdir) / "logits.npy", logits)
-    out = {"rank": run.rank, "seconds": run.seconds,
+    toks = run.batches[-1]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    extra = {}
+    if ssm:
+        logits, cache = transformer.prefill(
+            run.params, run.cfg, {"tokens": toks},
+            toks.shape[1] + SSM_DECODE)
+        nxt = greedy(logits)
+        with CollectiveCounter() as step:
+            logits, cache = transformer.decode_step(
+                run.params, run.cfg, nxt, cache, toks.shape[1])
+        _, step_s = timed(lambda: transformer.decode_step(
+            run.params, run.cfg, greedy(logits), cache, toks.shape[1] + 1))
+        extra = {"step_collectives": step.counts,
+                 "step_collective_bytes": step.nbytes,
+                 "decode_step_s": step_s}
+    else:
+        full, prefill_s = timed(lambda: eng.prefill(toks, None))
+        logits = sharding.full(full.state["logits"]).float().cpu().numpy()
+        if run.rank == 0:
+            np.save(pathlib.Path(workdir) / f"logits_{part}.npy", logits)
+        _, decode_s = timed(lambda: eng.decode(full, 2))
+        extra = {"prefill_s": prefill_s, "decode_step_s": decode_s / 2}
+    out = {"rank": run.rank, "seconds": run.seconds, **extra,
            "records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
                         int(r.admitted), r.decoded.tolist()]
                        for r in run.records],
            "launches": launches, "searches": idx.stats.searches,
            "admissions": idx.stats.admissions,
-           "resumed_chunks": eng.resumed_chunks,
+           "resumed_chunks": 0 if eng is None else eng.resumed_chunks,
            "collectives": comms.counts, "collective_bytes": comms.nbytes,
            "local_param_bytes": sum(
                t.to_local().numel() * t.to_local().element_size()
@@ -2598,9 +2649,18 @@ def httpd_child(np, torch, workdir: str) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
+#: the serve launcher's parts of phase 3g, run in turn by the ranks of
+#: one torchrun: (a) on (2, 1), (c) and (d) on (1, 2)
+SERVE_PARTS = {"serve": {"shape": (MESH_WORLD, 1)},
+               "serve_mp": {"shape": (1, MESH_WORLD)},
+               "serve_ssm": {"shape": (1, MESH_WORLD), "ssm": True}}
+
+
 def torchrun_child(argv: list) -> int:
-    """A rank torchrun started for phase 3g: ``kind workdir``; writes its
-    result to ``workdir/{kind}{rank}.json``."""
+    """A rank torchrun started for phase 3g: ``kind workdir``, ``kind``
+    ``httpd`` or ``serve`` (every part of SERVE_PARTS in turn, the card
+    freed between them); writes each part's result to
+    ``workdir/{part}{rank}.json``."""
     import numpy as np
     import torch
     kind, workdir = argv
@@ -2608,11 +2668,19 @@ def torchrun_child(argv: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    children = {"serve": serve_child, "httpd": httpd_child,
-                "serve_mp": lambda *a: serve_child(*a, shape=(1, MESH_WORLD))}
-    out = children[kind](np, torch, workdir)
-    (pathlib.Path(workdir) / f"{kind}{out['rank']}.json").write_text(
-        json.dumps(out))
+    parts = ({"httpd": lambda: httpd_child(np, torch, workdir)}
+             if kind == "httpd" else
+             {part: functools.partial(serve_child, np, torch, workdir, part,
+                                      **kw)
+              for part, kw in SERVE_PARTS.items()})
+    for part, child in parts.items():
+        t0 = time.perf_counter()
+        out = child()
+        out["part_s"] = time.perf_counter() - t0
+        (pathlib.Path(workdir) / f"{part}{out['rank']}.json").write_text(
+            json.dumps(out))
+        del out
+        free_card(torch)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -2631,20 +2699,27 @@ def wait_torchrun(proc, log_path) -> str:
     return pathlib.Path(log_path).read_text()
 
 
-def mesh_serve_check(np, torch, one: dict, workdir: str,
-                     kind: str = "serve") -> dict:
-    """(a) ``launch/serve.py --mesh host`` under torchrun with phase 3's
-    arguments (``kind`` ``serve_mp``: the (1, 2) mesh of (c)): both
-    ranks' records equal; hits, resumed chunks and admissions phase 3's;
-    greedy tokens under the margin rule with phase 3's gaps; a full
-    prefill of the last batch within the 48-layer ceilings of phase 3's;
-    each rank launched the multi-set search once per lookup."""
-    log_path = pathlib.Path(workdir) / f"{kind}.log"
-    proc = start_torchrun([kind, workdir], log_path)
+def serve_ranks(workdir: str) -> None:
+    """(a), (c), (d): one torchrun of MESH_WORLD ranks running every part
+    of SERVE_PARTS; a failed or hung rank fails the phase."""
+    log_path = pathlib.Path(workdir) / "serve.log"
+    proc = start_torchrun(["serve", workdir], log_path)
     text = wait_torchrun(proc, log_path)
     if proc.returncode != 0:
-        raise AssertionError(f"phase 3g {kind} torchrun exited "
+        raise AssertionError(f"phase 3g serve torchrun exited "
                              f"{proc.returncode}:\n{text[-6000:]}")
+
+
+def mesh_serve_check(np, torch, one: dict, workdir: str,
+                     kind: str = "serve") -> dict:
+    """(a) ``launch/serve.py --mesh host`` with phase 3's arguments
+    (``kind`` ``serve_mp``: the (1, 2) mesh of (c); ``serve_ssm``: (d)),
+    its ranks' results (:func:`serve_ranks`): both ranks' records equal;
+    hits, resumed chunks and admissions ``one``'s (phase 3's); greedy
+    tokens under the margin rule with its gaps; a full prefill of the
+    last batch within the 48-layer ceilings of phase 3's, or for (d) a
+    decode step's all-gather bytes the activation figure; each rank
+    launched the multi-set search once per lookup."""
     ranks = [result_of(kind, workdir, r) for r in range(MESH_WORLD)]
     if any(ranks[r]["records"] != ranks[0]["records"]
            for r in range(1, MESH_WORLD)):
@@ -2661,14 +2736,25 @@ def mesh_serve_check(np, torch, one: dict, workdir: str,
                                    np.array(gap)):
             raise AssertionError(f"mesh tokens {g[4]} against {w[4]} "
                                  f"(gaps {gap})")
-    a = np.load(pathlib.Path(workdir) / "logits.npy")
-    b = one["logits_full_last"]
-    d_max = float(np.abs(a - b).max())
-    outside = float((np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean())
-    if d_max > DEEP_MAX_ABS or outside > DEEP_MAX_OUTSIDE:
-        raise AssertionError(f"full prefill over the mesh against one "
-                             f"process: max |diff| {d_max}, {outside} "
-                             "outside rtol/atol")
+    if kind == "serve_ssm":
+        rows = int(MP_SSM_ARGV[MP_SSM_ARGV.index("--batch") + 1])
+        figure = ssm_step_gather_bytes(mp_ssm_config(), rows)
+        d_max = outside = None
+        for r in ranks:
+            if r["step_collective_bytes"]["all-gather"] != figure:
+                raise AssertionError(
+                    f"rank {r['rank']}: a decode step gathered "
+                    f"{r['step_collective_bytes']} bytes, not the "
+                    f"activation figure {figure}")
+    else:
+        a = np.load(pathlib.Path(workdir) / f"logits_{kind}.npy")
+        b = one["logits_full_last"]
+        d_max = float(np.abs(a - b).max())
+        outside = float((np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean())
+        if d_max > DEEP_MAX_ABS or outside > DEEP_MAX_OUTSIDE:
+            raise AssertionError(f"full prefill over the mesh against one "
+                                 f"process: max |diff| {d_max}, {outside} "
+                                 "outside rtol/atol")
     for r in ranks:
         if r["launches"] != r["searches"] or r["launches"] <= 0:
             raise AssertionError(f"rank {r['rank']}: {r['launches']} "
@@ -2676,11 +2762,24 @@ def mesh_serve_check(np, torch, one: dict, workdir: str,
                                  "searches")
     tokens_equal = float(np.mean([np.array_equal(g[4], w[4])
                                   for g, w in zip(got, want)]))
-    log(f"phase 3g {kind} yi-9b x48: records equal on both ranks "
-        f"and to phase 3 ({[g[:4] for g in got]}), requests' tokens equal "
-        f"{tokens_equal:.3f}; last batch full prefill max |diff| "
-        f"{d_max:.6f}, {outside:.5f} outside; serve loop "
-        f"{[round(r['seconds'], 2) for r in ranks]} s (one process "
+    if kind == "serve_ssm":
+        held = (f"decode step all-gather bytes a rank "
+                f"{[r['step_collective_bytes']['all-gather'] for r in ranks]}"
+                f" (activation figure {figure}; all collectives "
+                f"{ranks[0]['step_collective_bytes']}), step "
+                f"{[round(r['decode_step_s'], 4) for r in ranks]} s")
+        what = f"{MP_SSM_ARCH} x{MP_SSM_LAYERS}"
+    else:
+        held = (f"last batch full prefill max |diff| {d_max:.6f}, "
+                f"{outside:.5f} outside, "
+                f"{[round(r['prefill_s'], 4) for r in ranks]} s; decode "
+                f"{[round(r['decode_step_s'], 4) for r in ranks]} s a token")
+        what = "yi-9b x48"
+    log(f"phase 3g {kind} {what}: records equal on both ranks "
+        f"and to one process ({[g[:4] for g in got]}), requests' tokens "
+        f"equal {tokens_equal:.3f}; {held}; serve loop "
+        f"{[round(r['seconds'], 2) for r in ranks]} s, part "
+        f"{[round(r['part_s'], 1) for r in ranks]} s (one process "
         f"{one['seconds']:.2f}); multi-set launches a rank "
         f"{[r['launches'] for r in ranks]}; collectives a rank "
         f"{ranks[0]['collectives']}, {ranks[0]['collective_bytes']} bytes; "
@@ -2869,12 +2968,62 @@ def mesh_edge_check(np, torch, workdir: str) -> dict:
             "b2_divergences": shape}
 
 
-def mesh_serve_phase(np, torch, smi: str, base_bytes: int, one: dict,
-                     probe: dict) -> dict:
+def mp_ssm_config():
+    """zamba2-2.7b at full width and MP_SSM_LAYERS layers, phase 3g
+    (d)'s config."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MP_SSM_ARCH),
+                               n_layers=MP_SSM_LAYERS)
+
+
+def ssm_step_gather_bytes(cfg, rows: int) -> int:
+    """The all-gather output bytes of one decode step of an SSM stack
+    whose every SSM weight has its last dimension split over ``model``
+    (``ssm._decode_on_rows``): each Mamba-2 layer gathers ``z`` and
+    ``dt``'s heads (float32 inside a layer group, bf16 in a remainder
+    block), ``xBC`` before and after the conv (d_inner + 2N, bf16 each)
+    and its output (d_model, bf16); each Mamba-1 layer ``xh`` before and
+    after the conv (bf16), ``z`` and ``dt`` (float32 in a group), the
+    ``x_proj`` product (dt rank + 2N) and its output."""
+    group, n_groups, rem = cfg.scan_groups()
+    di, n, d = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.d_model
+    per = 0
+    for kind, fused in ([(k, True) for k in group] * n_groups
+                        + [(k, False) for k in rem]):
+        f = 4 if fused else 2
+        if kind == "mamba2":
+            per += f * (di + di // cfg.ssm_head_dim) + 4 * (di + 2 * n) \
+                + 2 * d
+        elif kind == "mamba1":
+            per += 4 * di + 2 * f * di + 2 * (max(d // 16, 1) + 2 * n) \
+                + 2 * d
+    return rows * per
+
+
+def mp_ssm_one_process(np, torch) -> dict:
+    """(d)'s reference: MP_SSM_ARGV at MP_SSM_LAYERS layers served in this
+    process on the card, its records and every greedy step's top-2 gap;
+    the card freed after."""
+    from repro_torch.launch import serve
+    gaps = RecordedGaps(np)
+    run = serve.serve(serve.parse_args(MP_SSM_ARGV), cfg=mp_ssm_config(),
+                      on_logits=gaps.record)
+    one = {"records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
+                        int(r.admitted), r.decoded.tolist()]
+                       for r in run.records],
+           "gaps": [g.tolist() for g in gaps.per_request(SSM_DECODE)],
+           "admissions": run.index.stats.admissions, "seconds": run.seconds}
+    del run
+    free_card(torch)
+    return one
+
+
+def mesh_serve_phase(np, torch, smi: str, base_bytes: int,
+                     one: dict) -> dict:
     """Phase 3g: free the card of phase 3f, then (a) the serve launcher
-    and (b) the edge over a (2, 1) mesh of two ranks of ``cuda:0``, each
-    under torchrun; (c) model parallelism only where phase 3f (a) shows
-    that the functional all-gather runs."""
+    and (b) the edge over a (2, 1) mesh of two ranks of ``cuda:0``, (c)
+    the serve launcher and (d) zamba2-2.7b over (1, 2), each under
+    torchrun."""
     import shutil
     import tempfile
 
@@ -2887,25 +3036,20 @@ def mesh_serve_phase(np, torch, smi: str, base_bytes: int, one: dict,
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
     try:
+        ssm_one = mp_ssm_one_process(np, torch)
+        serve_ranks(tmp)
         served = mesh_serve_check(np, torch, one, tmp)
+        model_parallel = mesh_serve_check(np, torch, one, tmp, "serve_mp")
+        ssm_parallel = mesh_serve_check(np, torch, ssm_one, tmp,
+                                        "serve_ssm")
         edge = mesh_edge_check(np, torch, tmp)
-        gathers = probe.get("functional_all_gather")
-        if gathers == "ok":
-            model_parallel = mesh_serve_check(np, torch, one, tmp,
-                                              "serve_mp")
-        else:
-            model_parallel = (
-                "not run: the functional all-gather (DTensor's Shard -> "
-                f"Replicate) gave {gathers!r} in phase 3f (a), so no "
-                "model-parallel mesh runs on one card (ROADMAP Queue 3 "
-                "item 18)")
-            log(f"phase 3g (c) yi-9b on (1, 2): {model_parallel}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t0
     log(f"phase 3g: {wall:.1f} s")
     report = {"serve": served, "edge": edge,
-              "model_parallel": model_parallel, "wall_s": wall,
+              "model_parallel": model_parallel,
+              "ssm_model_parallel": ssm_parallel, "wall_s": wall,
               "card": smi}
     print(json.dumps({"mesh_serving": report}), flush=True)
     return report
@@ -4523,7 +4667,7 @@ def main() -> int:
     training = train_phase(np, torch, smi, base_bytes)
     meshed = mesh_phase(np, torch, smi, base_bytes)
     mesh_served = mesh_serve_phase(np, torch, smi, base_bytes,
-                                   served["one_process"], meshed["probe"])
+                                   served["one_process"])
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -4551,8 +4695,8 @@ def main() -> int:
                         for name in read_counts()}
     mesh_launches = {       # each rank's, counted in its own process
         part: [r["launches"] for r in mesh_served[part]["ranks"]]
-        for part in ("serve", "edge", "model_parallel")
-        if isinstance(mesh_served[part], dict)}
+        for part in ("serve", "edge", "model_parallel",
+                     "ssm_model_parallel")}
 
     path_launches = {
         "xam_search_multiset": (serve_counts["xam_search_multiset"]

@@ -27,14 +27,22 @@ The reference's ``to_named`` (specs to JAX ``NamedSharding``s) is
 :func:`place`: one process runs per position of a ``torch.distributed``
 ``DeviceMesh`` (``launch/mesh.device_mesh``) and holds its own block of
 each leaf as a ``DTensor``.  :func:`gather` is the reference's
-``np.asarray`` of a global array; it moves the blocks with the raw
-``torch.distributed`` collectives (``all_gather_into_tensor``,
-``all_reduce``), which every backend runs on card tensors, not with
-DTensor's functional all-gather, which a gloo group of CUDA tensors
-does not survive on some versions (ROADMAP Queue 3 item 18).
-:func:`zeros` makes a placed tensor from its blocks alone (a decode
-cache), :func:`vocab_rows` looks up the rows of a vocabulary-sharded
-table, and :func:`local_map` runs a function on each process's blocks.
+``np.asarray`` of a global array.
+
+Every split that a placed tensor gives up moves its blocks by the raw
+``torch.distributed`` collectives (``all_gather_into_tensor``, and
+``all_reduce`` for a partial sum), which every backend runs on card
+tensors, never by DTensor's functional all-gather, which a gloo group of
+CUDA tensors does not survive on some versions (ROADMAP Queue 3 item
+18): :class:`_Gather` is that one gather, differentiable (its backward
+takes each process's own slice of the gradient, as DTensor's
+``Replicate`` -> ``Shard`` does), and :func:`redistribute` (DTensor's
+``redistribute`` with every undone split gathered by it),
+:func:`replicate_dim`, :func:`full`, :func:`gather_rows` and
+:func:`gather_columns` are built on it.  :func:`zeros` makes a placed
+tensor from its blocks alone (a decode cache), :func:`vocab_rows` looks
+up the rows of a vocabulary-sharded table, and :func:`local_map` runs a
+function on each process's blocks.
 """
 from __future__ import annotations
 
@@ -251,11 +259,11 @@ def constrain(t, axes):
 
 def replicate_dim(t: DTensor, dim: int) -> DTensor:
     """``t`` with every mesh dimension that shards its dimension ``dim``
-    redistributed to ``Replicate`` (an all-gather), the others kept."""
+    made ``Replicate`` by the raw all-gather (:class:`_Gather`), the
+    others kept."""
     dim = dim % t.dim()
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
-          for p in t.placements]
-    return t.redistribute(t.device_mesh, pl)
+    return _gathered(t, [i for i, p in enumerate(t.placements)
+                         if p == Shard(dim)])
 
 
 def local_rows(fn, *tensors):
@@ -271,16 +279,6 @@ def local_rows(fn, *tensors):
     rows = row_placements(first)
     return local_map(lambda *t: tuple(fn(*t)), tensors,
                      [rows] * len(tensors), rows)
-
-
-def replicated_local(t):
-    """A placed tensor's full value as this process's plain tensor (a
-    gather over the mesh dimensions that split it); a plain tensor as it
-    is."""
-    if not isinstance(t, DTensor):
-        return t
-    return t.redistribute(t.device_mesh,
-                          [Replicate()] * t.device_mesh.ndim).to_local()
 
 
 def row_placements(t: DTensor) -> list:
@@ -314,7 +312,7 @@ def local_map(fn, tensors, in_pl, out_pl):
             return t
         grad = [Partial() if varies[i] and isinstance(p, Replicate) else p
                 for i, p in enumerate(pl)]
-        return t.redistribute(dm, pl).to_local(grad_placements=grad)
+        return redistribute(t, pl).to_local(grad_placements=grad)
 
     out = fn(*(local(t, pl) for t, pl in zip(tensors, in_pl)))
     single = not isinstance(out, tuple)
@@ -338,8 +336,8 @@ def vocab_rows(table: DTensor, ids) -> DTensor:
     ids_pl = (list(ids.placements) if isinstance(ids, DTensor)
               else [Replicate()] * dm.ndim)
     if any(isinstance(p, Shard) and p.dim != 0 for p in table.placements):
-        table = table.redistribute(dm, [p if p == Shard(0) else Replicate()
-                                        for p in table.placements])
+        table = redistribute(table, [p if p == Shard(0) else Replicate()
+                                     for p in table.placements])
     off, size = block_bounds(table.shape, table.placements, dm)
     lo, n = off[0], size[0]
     # the rows' gradient: each process's block of the table gets its
@@ -376,50 +374,121 @@ def _all_gather(local: torch.Tensor, dim: int, device_mesh,
     return out.movedim(0, dim)
 
 
+class _Gather(torch.autograd.Function):
+    """``local``, this process's block of a tensor placed by ``pl`` over
+    ``dm``, with the mesh dimensions ``dims`` made ``Replicate`` by raw
+    collectives over their groups: ``Partial`` blocks all-reduced first,
+    then ``Shard`` blocks gathered with ``all_gather_into_tensor``, the
+    last mesh dimension first.  Backward, as DTensor's: each process's
+    own slice of the replicated gradient (its ``Replicate`` ->
+    ``Shard``), passed unchanged through every partial sum (the gradient
+    of a partial sum is replicated, :func:`_gathered`)."""
+
+    @staticmethod
+    def forward(ctx, local, dm, pl, dims):
+        ctx.dm, ctx.pl, ctx.dims = dm, pl, dims
+        dist = torch.distributed
+        for i in dims:
+            if pl[i].is_partial():
+                op = _REDUCE.get(getattr(pl[i], "reduce_op", None))
+                if op is None:
+                    raise ValueError(f"cannot reduce a {pl[i]} placement")
+                local = local.clone()
+                dist.all_reduce(local, op=getattr(dist.ReduceOp, op),
+                                group=dm.get_group(i))
+        for i in reversed(dims):
+            if isinstance(pl[i], Shard):
+                local = _all_gather(local, pl[i].dim, dm, i)
+        return local
+
+    @staticmethod
+    def backward(ctx, grad):
+        coord = ctx.dm.get_coordinate()
+        for i, p in enumerate(ctx.pl):
+            if p.is_partial() and getattr(p, "reduce_op", None) != "sum":
+                raise NotImplementedError(f"the gradient through a {p} "
+                                          "reduction")
+            if isinstance(p, Shard) and i in ctx.dims:
+                grad = grad.chunk(ctx.dm.size(i), p.dim)[coord[i]]
+        return grad, None, None, None
+
+
+def _gathered(t: DTensor, dims) -> DTensor:
+    """``t`` with the mesh dimensions ``dims`` made ``Replicate`` by
+    :class:`_Gather` (even splits only), the others kept."""
+    dm, pl = t.device_mesh, tuple(t.placements)
+    dims = tuple(sorted(dims))
+    if not dims:
+        return t
+    block_bounds(t.shape, pl, dm)                    # even splits only
+    local = t.to_local(grad_placements=[
+        Replicate() if p.is_partial() else p for p in pl])
+    local = _Gather.apply(local, dm, pl, dims)
+    return DTensor.from_local(
+        local, dm, [Replicate() if i in dims else p
+                    for i, p in enumerate(pl)],
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def redistribute(t: DTensor, pl) -> DTensor:
+    """``t.redistribute(t.device_mesh, pl)`` with every split that ``pl``
+    gives up made whole first by :class:`_Gather` (each mesh dimension
+    that splits such a tensor dimension is gathered, and DTensor cuts
+    again what ``pl`` keeps split, a local slice): DTensor's own
+    redistribution is then left only partial sums to reduce and whole
+    dimensions to cut, never an all-gather."""
+    src, pl = list(t.placements), list(pl)
+    undone = {p.dim for p, q in zip(src, pl) if isinstance(p, Shard)
+              and p != q}
+    t = _gathered(t, [i for i, p in enumerate(src)
+                      if isinstance(p, Shard) and p.dim in undone])
+    if list(t.placements) != pl:
+        t = t.redistribute(t.device_mesh, pl)
+    return t
+
+
 def full(x):
-    """A ``DTensor`` as its full tensor (every process calls it), by raw
-    collectives over each mesh dimension's group: ``Partial`` blocks
-    all-reduced, ``Shard`` blocks gathered with
-    ``all_gather_into_tensor``, the last mesh dimension first; any other
-    value as it is."""
+    """A ``DTensor`` as its full tensor, this process's plain tensor
+    (every process calls it), by :class:`_Gather` over every mesh
+    dimension that splits it or holds a partial sum; any other value as
+    it is."""
     if not isinstance(x, DTensor):
         return x
-    dist = torch.distributed
-    dm = x.device_mesh
-    block_bounds(x.shape, x.placements, dm)          # even splits only
-    local = x.to_local()
-    for i, p in enumerate(x.placements):
-        if p.is_partial():
-            op = _REDUCE.get(getattr(p, "reduce_op", None))
-            if op is None:
-                raise ValueError(f"cannot reduce a {p} placement")
-            local = local.clone()
-            dist.all_reduce(local, op=getattr(dist.ReduceOp, op),
-                            group=dm.get_group(i))
-    for i in reversed(range(dm.ndim)):
-        p = x.placements[i]
-        if isinstance(p, Shard):
-            local = _all_gather(local, p.dim, dm, i)
-    return local
+    return _gathered(x, [i for i, p in enumerate(x.placements)
+                         if not isinstance(p, Replicate)]).to_local()
 
 
 def gather_rows(x):
     """A placed KV leaf's batch rows (the dimension fourth from the end)
-    gathered over the mesh dimensions that split them, by
-    :func:`_all_gather`; those mesh dimensions become ``Replicate`` and
+    gathered over the mesh dimensions that split them
+    (:class:`_Gather`); those mesh dimensions become ``Replicate`` and
     the others keep their blocks.  A plain tensor as it is."""
     if not isinstance(x, DTensor):
         return x
-    dm = x.device_mesh
     dim = x.dim() - 4
-    block_bounds(x.shape, x.placements, dm)          # even splits only
-    pl, local = list(x.placements), x.to_local()
-    for i in reversed(range(dm.ndim)):
-        if pl[i] == Shard(dim):
-            local = _all_gather(local, dim, dm, i)
-            pl[i] = Replicate()
-    return DTensor.from_local(local, dm, pl, run_check=False,
-                              shape=x.shape, stride=x.stride())
+    return _gathered(x, [i for i, p in enumerate(x.placements)
+                         if p == Shard(dim)])
+
+
+def gather_columns(parts, device_mesh, mesh_dims) -> list:
+    """``parts``, this process's blocks of tensors whose last dimension
+    is split evenly over ``mesh_dims`` (their other dimensions alike,
+    one dtype), each made whole by one raw all-gather of them all
+    (:func:`_all_gather`, the last mesh dimension first, as
+    :class:`_Gather`).  Not differentiable: a decode step's
+    activations."""
+    if not mesh_dims:
+        return list(parts)
+    widths = [p.shape[-1] for p in parts]
+    buf = torch.cat(list(parts), dim=-1)[None]
+    for i in reversed(mesh_dims):
+        buf = _all_gather(buf, 0, device_mesh, i)
+    out, lo = [], 0
+    for w in widths:
+        block = buf[..., lo:lo + w]                  # (M, ..., w)
+        out.append(block.movedim(0, -2).reshape(block.shape[1:-1] + (-1,)))
+        lo += w
+    return out
 
 
 def gather(tree):

@@ -184,17 +184,18 @@ def kv_config(args, resume: bool) -> KVIndexConfig:
     return KVIndexConfig(**kv_kw)
 
 
-def build_frontend(args, params: dict | None = None, cfg=None):
+def build_frontend(args, params: dict | None = None, cfg=None, mesh=None):
     """Model + index + router + socket, not yet started: ``(frontend,
     admit_q)``; on a process of a mesh other than 0, ``(Follower,
     admit_q)``.
 
     ``params`` serves given parameters (on ``args.device``) instead of
     seeded random ones (``transformer.init_params(seed=0)``); ``cfg``
-    replaces ``--arch``'s config (one cut in depth, say).  Separated
+    replaces ``--arch``'s config (one cut in depth, say), and ``mesh``
+    ``--mesh``'s (a ``(1, 2)`` model-parallel mesh, say).  Separated
     from :func:`main` so tests can boot the real stack on an ephemeral
     port and drive it in-process."""
-    ctx = mesh_context(args)
+    ctx = mesh_context(args, mesh)
     device, rank = ctx.device, ctx.rank
     say = print if rank == 0 else (lambda *a, **k: None)
     if cfg is None:
@@ -256,11 +257,11 @@ def build_frontend(args, params: dict | None = None, cfg=None):
     return frontend, admit_q
 
 
-def main(argv=None, cfg=None):
+def main(argv=None, cfg=None, mesh=None):
     """CLI entry point: serve until SIGTERM/SIGINT, then drain (``cfg``
-    as for :func:`build_frontend`)."""
+    and ``mesh`` as for :func:`build_frontend`)."""
     args = build_parser().parse_args(argv)
-    frontend, admit_q = build_frontend(args, cfg=cfg)
+    frontend, admit_q = build_frontend(args, cfg=cfg, mesh=mesh)
     if isinstance(frontend, Follower):
         # process 0 drains on the signal, then ends this one
         for sig in (signal.SIGTERM, signal.SIGINT):

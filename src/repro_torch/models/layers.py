@@ -104,14 +104,14 @@ def _heads(t: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
     """(B, S, n * d_head) as (B, S, n, d_head).  A placed projection
     whose split of the last dimension does not divide the ``n`` heads
     (4 KV heads over 16 processes) is gathered over those mesh
-    dimensions first: DTensor cannot split fewer heads than processes."""
+    dimensions first (the raw all-gather, ``sharding.redistribute``):
+    DTensor cannot split fewer heads than processes."""
     b, s = t.shape[:2]
     if isinstance(t, DTensor):
         dm = t.device_mesh
         dims = [i for i, p in enumerate(t.placements) if p == Shard(2)]
         if n % math.prod(dm.size(i) for i in dims):
-            t = t.redistribute(dm, [Replicate() if i in dims else p
-                                    for i, p in enumerate(t.placements)])
+            t = sharding.replicate_dim(t, 2)
     return t.reshape(b, s, n, d_head)
 
 
@@ -386,12 +386,10 @@ def write_slots(cache: torch.Tensor, slots, values: torch.Tensor) -> None:
         return
     dm = cache.device_mesh
     pl = [Replicate() if p == Shard(1) else p for p in cache.placements]
-    if isinstance(values, DTensor):
-        vals = values.redistribute(dm, pl).to_local()
-    else:
-        vals = DTensor.from_local(values, dm, [Replicate()] * dm.ndim,
-                                  run_check=False).redistribute(
-                                      dm, pl).to_local()
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, dm, [Replicate()] * dm.ndim,
+                                    run_check=False)
+    vals = sharding.redistribute(values, pl).to_local()
     off, size = sharding.block_bounds(cache.shape, cache.placements, dm)
     lo, hi = off[1], off[1] + size[1]
     runs = []                                # [block slot, value index, n]

@@ -226,7 +226,7 @@ def _moe_block_placed(params: dict, x: DTensor, cfg: ArchConfig):
     y, expert_ix, probs = sharding.local_map(
         run, (x,) + tuple(params[n] for n in names), [rows] + w_pl,
         (y_pl, rows, rows))
-    return y.redistribute(dm, rows).to(x.dtype), expert_ix, probs
+    return sharding.redistribute(y, rows).to(x.dtype), expert_ix, probs
 
 
 def _placements(t, dm) -> list:

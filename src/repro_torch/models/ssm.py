@@ -25,6 +25,12 @@ for its grouped blocks); the default follows the op-by-op reference, as
 its remainder blocks and direct calls run.
 Decode updates the state and the conv buffer IN PLACE (the reference
 returned updated copies), as ``layers.decode_attention`` does its cache.
+
+Placed over a mesh (``DTensor`` weights by ``param_specs``: every
+projection, ``conv_w`` and Mamba-1's ``a_log`` split by their last
+dimension over ``model``), the blocks run as DTensor ops, each gather
+taken by ``sharding``'s raw all-gather before the op that needs it; the
+decode step runs on each process's blocks (:func:`_decode_on_rows`).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding
@@ -172,14 +179,22 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def _conv_step(x_t: torch.Tensor, conv_buf: torch.Tensor, w: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
-    """One causal conv step over the (B, K-1, C) tap buffer, which is
-    shifted by one IN PLACE; returns the float32 conv output (B, C)."""
-    ext = torch.cat([conv_buf, x_t[:, None, :].to(conv_buf.dtype)], dim=1)
-    out = torch.einsum("bkc,kc->bc", ext.float(), w.float()) + b.float()
-    conv_buf.copy_(ext[:, 1:])
-    return out
+def _conv_out(x_t: torch.Tensor, conv_buf: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """The float32 output (B, C) of one causal conv step over channels
+    [lo, lo + C) of the (B, K-1, C_all) tap buffer: ``x_t`` (B, C) and
+    ``w`` (K, C) hold those channels, ``b`` all of them."""
+    hi = lo + x_t.shape[-1]
+    ext = torch.cat([conv_buf[..., lo:hi],
+                     x_t[:, None, :].to(conv_buf.dtype)], dim=1)
+    return torch.einsum("bkc,kc->bc", ext.float(), w.float()) \
+        + b[lo:hi].float()
+
+
+def _conv_shift(x_t: torch.Tensor, conv_buf: torch.Tensor) -> None:
+    """The tap buffer shifted by one IN PLACE, ``x_t`` (B, C) last."""
+    conv_buf.copy_(torch.cat([conv_buf[:, 1:],
+                              x_t[:, None, :].to(conv_buf.dtype)], dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +238,17 @@ def mamba1_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     reference's compiled layer-group body does (module docstring)."""
     r, n = dt_rank(cfg), cfg.ssm_state
     chunk = min(chunk, x.shape[1])
+    # placed, each activation split by columns is gathered whole where
+    # it is made (the raw all-gather; on one process a no-op)
     xh_raw = x @ params["wx"]
-    z = x @ params["wz"]
+    z = _whole(x @ params["wz"])
     conv = _causal_depthwise_conv(xh_raw, params["conv_w"], params["conv_b"])
-    xh32 = conv.float() * (1 / (1 + torch.exp(-conv))).float()
+    xh32 = _whole(conv.float() * (1 / (1 + torch.exp(-conv))).float())
     xh = xh32.to(DTYPE)                  # == layers.silu(conv)
-    dbc = xh @ params["x_proj"]
+    dbc = _whole(xh @ params["x_proj"])
     dt_in, b_in, c_in = torch.split(dbc, [r, n, n], dim=-1)
-    dt = softplus((dt_in @ params["dt_w"]).float() + params["dt_b"].float())
+    dt = softplus(_whole(dt_in @ params["dt_w"]).float()
+                  + params["dt_b"].float())
     a = -torch.exp(params["a_log"])
     # placed over a mesh, the scan runs on each process's own batch rows
     # with ``a`` whole (its in-place output and per-step states have no
@@ -260,25 +278,38 @@ def mamba1_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
     conv_buf); ``fused`` as for :func:`mamba1_block`.  A placed state is
     stepped on each process's rows (:func:`_decode_on_rows`)."""
     if isinstance(h, DTensor):
-        return _decode_on_rows(mamba1_decode, params, x, cfg, h, conv_buf,
+        return _decode_on_rows(_mamba1_step, params, x, cfg, h, conv_buf,
                                fused)
+    return _mamba1_step(_Blocks(params), x, cfg, h, conv_buf, fused), h, \
+        conv_buf
+
+
+def _mamba1_step(p: "_Blocks", x, cfg: ArchConfig, h, conv_buf,
+                 fused: bool) -> torch.Tensor:
+    """:func:`mamba1_decode` on plain tensors, its weights ``p`` whole
+    or this process's column blocks (:class:`_Blocks`); returns the
+    output (B, 1, D)."""
     r, n = dt_rank(cfg), cfg.ssm_state
     mm = _mm_f32 if fused else torch.mm
-    xh = x[:, 0] @ params["wx"]
-    z = mm(x[:, 0], params["wz"])
-    xh_c = _conv_step(xh, conv_buf, params["conv_w"], params["conv_b"])
-    xh = layers.silu(xh_c).to(x.dtype)
-    dbc = xh @ params["x_proj"]
+    xh_raw = x[:, 0] @ p["wx"]
+    z = mm(x[:, 0], p["wz"])
+    xh = layers.silu(_conv_out(xh_raw, conv_buf, p["conv_w"], p["conv_b"],
+                               p.lo("wx"))).to(x.dtype)
+    xh_raw, xh, z = p.whole((xh_raw, "wx"), (xh, "wx"), (z, "wz"))
+    _conv_shift(xh_raw, conv_buf)
+    dbc, = p.whole((xh @ p["x_proj"], "x_proj"))
     dt_in, b_in, c_in = torch.split(dbc, [r, n, n], dim=-1)
-    dt = softplus(mm(dt_in, params["dt_w"]).float() + params["dt_b"].float())
-    a = -torch.exp(params["a_log"])
+    dt_mm, = p.whole((mm(dt_in, p["dt_w"]), "dt_w"))
+    dt = softplus(dt_mm.float() + p["dt_b"].float())
+    a = -torch.exp(p.leaf("a_log"))
     da = torch.exp(dt[..., None] * a)                        # (B, di, N)
     dbx = (dt * xh.float())[..., None] * b_in.float()[:, None, :]
     torch.addcmul(dbx, h, da, out=h)
     y = torch.einsum("bdn,bn->bd", h, c_in.float())
-    y = y + xh.float() * params["d_skip"]
+    y = y + xh.float() * p["d_skip"]
     y = (y * layers.silu(z.float())).to(x.dtype)
-    return (y @ params["out_proj"])[:, None, :], h, conv_buf
+    out, = p.whole((y @ p["out_proj"], "out_proj"))
+    return out[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -343,11 +374,13 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     bsz, s, _ = x.shape
     di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
     p = cfg.ssm_head_dim
-    z = x @ params["wz"]
+    # placed, each activation split by columns is gathered whole where
+    # it is made (the raw all-gather; on one process a no-op)
+    z = _whole(x @ params["wz"])
     xbc_raw = x @ params["wxbc"]
-    dt_in = x @ params["wdt"]
-    xbc = layers.silu(_causal_depthwise_conv(xbc_raw, params["conv_w"],
-                                             params["conv_b"]))
+    dt_in = _whole(x @ params["wdt"])
+    xbc = _whole(layers.silu(_causal_depthwise_conv(
+        xbc_raw, params["conv_w"], params["conv_b"])))
     xh, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     dt = softplus(dt_in.float() + params["dt_b"])                # (B, S, H)
     a = -torch.exp(params["a_log"])                              # (H,)
@@ -386,46 +419,144 @@ def mamba2_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
     :func:`mamba1_block`.  A placed state is stepped on each process's
     rows (:func:`_decode_on_rows`)."""
     if isinstance(hstate, DTensor):
-        return _decode_on_rows(mamba2_decode, params, x, cfg, hstate,
+        return _decode_on_rows(_mamba2_step, params, x, cfg, hstate,
                                conv_buf, fused)
+    return _mamba2_step(_Blocks(params), x, cfg, hstate, conv_buf, fused), \
+        hstate, conv_buf
+
+
+def _mamba2_step(p: "_Blocks", x, cfg: ArchConfig, hstate, conv_buf,
+                 fused: bool) -> torch.Tensor:
+    """:func:`mamba2_decode` on plain tensors, its weights ``p`` whole
+    or this process's column blocks (:class:`_Blocks`); returns the
+    output (B, 1, D)."""
     bsz = x.shape[0]
     di, n, h = d_inner(cfg), cfg.ssm_state, m2_heads(cfg)
-    p = cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
     mm = _mm_f32 if fused else torch.mm
-    z = mm(x[:, 0], params["wz"])
-    xbc = x[:, 0] @ params["wxbc"]
-    dt_in = mm(x[:, 0], params["wdt"])
-    xbc_c = _conv_step(xbc, conv_buf, params["conv_w"], params["conv_b"])
-    xbc = layers.silu(xbc_c).to(x.dtype)
+    z = mm(x[:, 0], p["wz"])
+    xbc_raw = x[:, 0] @ p["wxbc"]
+    dt_in = mm(x[:, 0], p["wdt"])
+    xbc = layers.silu(_conv_out(xbc_raw, conv_buf, p["conv_w"], p["conv_b"],
+                                p.lo("wxbc"))).to(x.dtype)
+    z, xbc_raw, dt_in, xbc = p.whole((z, "wz"), (xbc_raw, "wxbc"),
+                                     (dt_in, "wdt"), (xbc, "wxbc"))
+    _conv_shift(xbc_raw, conv_buf)
     xh, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
-    dt = softplus(dt_in.float() + params["dt_b"])                # (B, H)
-    a = -torch.exp(params["a_log"])
+    dt = softplus(dt_in.float() + p["dt_b"])                     # (B, H)
+    a = -torch.exp(p["a_log"])
     da = torch.exp(dt * a)
-    xhp = xh.reshape(bsz, h, p).float()
+    xhp = xh.reshape(bsz, h, hd).float()
     upd = torch.einsum("bh,bhp,bn->bhpn", dt, xhp, b_in.float())
     torch.addcmul(upd, hstate, da[:, :, None, None], out=hstate)
     y = torch.einsum("bhpn,bn->bhp", hstate, c_in.float())
-    y = (y + xhp * params["d_skip"][None, :, None]).reshape(bsz, 1, di)
-    out = (_gated_norm(y, z[:, None, :], params["norm_w"], fused)
-           @ params["out_proj"])
-    return out, hstate, conv_buf
+    y = (y + xhp * p["d_skip"][None, :, None]).reshape(bsz, 1, di)
+    out, = p.whole((_gated_norm(y, z[:, None, :], p["norm_w"], fused)
+                    @ p["out_proj"], "out_proj"))
+    return out
+
+
+def _whole(t):
+    """A placed activation with its last dimension gathered whole over
+    the mesh dimensions that split it (``sharding.replicate_dim``, the
+    raw all-gather); a plain tensor as it is."""
+    return sharding.replicate_dim(t, -1) if isinstance(t, DTensor) else t
+
+
+#: Mamba-1's ``a_log`` (di, N) gathered whole, once per placed block:
+#: its last dimension is split like a projection's, and every process
+#: updates the whole state.  Keyed by the block's place in its storage,
+#: which is held weakly (an entry whose storage is freed is dropped), and
+#: taken again once the block is written in place (its version counter
+#: moves).
+_WHOLE_LEAVES: dict = {}
+
+
+class _Blocks:
+    """A decode step's weights as this process's blocks: ``self[name]``
+    a weight's local block, :meth:`lo` the first of the columns of its
+    last dimension that it holds, and :meth:`whole` the activations
+    computed on such columns, gathered whole (``sharding.gather_columns``:
+    one raw all-gather per set of mesh dimensions and dtype).  Over plain
+    tensors every block is whole and nothing moves."""
+
+    def __init__(self, params: dict, device_mesh=None):
+        self.params, self.dm = params, device_mesh
+        self.split = {}                  # name -> (lo, mesh dims)
+        for name, w in params.items():
+            if not isinstance(w, DTensor):
+                continue
+            last = Shard(w.dim() - 1)
+            if any(not isinstance(q, Replicate) and q != last
+                   for q in w.placements):
+                raise ValueError(f"SSM weight {name} placed "
+                                 f"{list(w.placements)}: only its last "
+                                 "dimension may be split")
+            off, _ = sharding.block_bounds(w.shape, w.placements, self.dm)
+            self.split[name] = (off[-1], tuple(
+                i for i, q in enumerate(w.placements) if q == last))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        w = self.params[name]
+        return w.to_local() if isinstance(w, DTensor) else w
+
+    def lo(self, name: str) -> int:
+        return self.split.get(name, (0, ()))[0]
+
+    def whole(self, *pairs) -> list:
+        """``(activation, weight name)`` pairs, each activation's last
+        dimension following that weight's columns, made whole."""
+        out = [t for t, _ in pairs]
+        groups = {}
+        for j, (t, name) in enumerate(pairs):
+            dims = self.split.get(name, (0, ()))[1]
+            if dims:
+                groups.setdefault((dims, t.dtype), []).append(j)
+        for (dims, _), js in groups.items():
+            for j, t in zip(js, sharding.gather_columns(
+                    [out[j] for j in js], self.dm, dims)):
+                out[j] = t
+        return out
+
+    def leaf(self, name: str) -> torch.Tensor:
+        """A weight whole: a split one is gathered once and kept
+        (:data:`_WHOLE_LEAVES`)."""
+        w = self.params[name]
+        if not self.split.get(name, (0, ()))[1]:
+            return self[name]
+        local = w.to_local()
+        ref = StorageWeakRef(local.untyped_storage())
+        key = (ref.cdata, local.storage_offset(), tuple(local.shape),
+               local.stride(), local.dtype)
+        for k in [k for k, v in _WHOLE_LEAVES.items() if v[0].expired()]:
+            del _WHOLE_LEAVES[k]
+        kept = _WHOLE_LEAVES.get(key)
+        if kept is None or kept[1] != local._version:
+            kept = _WHOLE_LEAVES[key] = (ref, local._version,
+                                         sharding.full(w))
+        return kept[2]
 
 
 def _decode_on_rows(step, params: dict, x, cfg: ArchConfig, state,
                     conv_buf, fused: bool):
     """A decode ``step`` of a placed SSM state (``cache_specs`` splits
-    only its batch rows): each process runs the plain step on its own
-    rows with the block's parameters gathered whole, updating its blocks
-    of the state and the conv taps in place; the output is placed as
-    the state's rows are."""
+    only its batch rows, so every process holds its rows' whole state):
+    each process runs ``step`` on its own rows and its own blocks of the
+    weights (:class:`_Blocks`).  The in-projections and the conv give
+    this process's columns of the step's activations; those are gathered
+    whole (the raw all-gather), every process updates the whole state
+    and conv taps of its rows in place from them, and the output
+    projection's ``d_model`` columns are gathered last.  No weight
+    moves, but Mamba-1's ``a_log``, gathered once
+    (:meth:`_Blocks.leaf`); the output is placed as the state's rows
+    are."""
     dm, rows = state.device_mesh, list(state.placements)
     if any(p not in (Shard(0), Replicate()) for p in rows) or \
             list(conv_buf.placements) != rows:
         raise ValueError(f"an SSM state placed {rows}, its conv taps "
                          f"{list(conv_buf.placements)}: only batch rows may "
                          "be split")
-    full = {k: sharding.replicated_local(v) for k, v in params.items()}
-    out = step(full, x.redistribute(dm, rows).to_local(), cfg,
-               state.to_local(), conv_buf.to_local(), fused=fused)[0]
+    out = step(_Blocks(params, dm), sharding.redistribute(x, rows).to_local(),
+               cfg, state.to_local(), conv_buf.to_local(), fused)
     return (DTensor.from_local(out, dm, rows, run_check=False), state,
             conv_buf)

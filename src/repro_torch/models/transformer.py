@@ -335,7 +335,7 @@ def _like(t: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     placed: the stream keeps its layout from block to block."""
     if isinstance(t, DTensor) and isinstance(residual, DTensor) and \
             t.placements != residual.placements:
-        return t.redistribute(residual.device_mesh, residual.placements)
+        return sharding.redistribute(t, residual.placements)
     return t
 
 
@@ -589,8 +589,8 @@ def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
             src = DTensor.from_local(src, dst.device_mesh,
                                      [Replicate()] * dst.device_mesh.ndim,
                                      run_check=False)
-        dst.to_local().copy_(src.redistribute(dst.device_mesh,
-                                              dst.placements).to_local())
+        dst.to_local().copy_(
+            sharding.redistribute(src, dst.placements).to_local())
     else:
         dst.copy_(src)
 

@@ -85,8 +85,8 @@ def _placed_as_cache(kv: dict) -> dict:
         return kv
     dm = leaf.device_mesh
     specs = sharding.cache_specs(kv, dm)
-    return tree_map(lambda a, sp: a.redistribute(
-        dm, sharding.placements(sp, dm.mesh_dim_names)), kv, specs)
+    return tree_map(lambda a, sp: sharding.redistribute(
+        a, sharding.placements(sp, dm.mesh_dim_names)), kv, specs)
 
 
 def tokens_to_host(tokens: torch.Tensor) -> np.ndarray:

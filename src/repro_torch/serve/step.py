@@ -14,9 +14,10 @@ from repro_torch.models import transformer
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """The (B, 1) argmax tokens of (B, V) logits; placed logits have
-    their vocabulary gathered first (DTensor's argmax over a split
-    dimension fails on some versions), and the tokens keep their rows'
-    placements."""
+    their vocabulary gathered first by the raw all-gather
+    (``sharding.replicate_dim``: DTensor's argmax over a split dimension
+    fails on some versions), so the tokens are the first argmax of the
+    whole row, and keep their rows' placements."""
     if isinstance(logits, DTensor):
         logits = sharding.replicate_dim(logits, -1)
     return torch.argmax(logits, dim=-1)[:, None]

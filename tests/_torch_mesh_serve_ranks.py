@@ -70,11 +70,23 @@ def wear_requests(seed: int = 1) -> list:
             for _ in range(WEAR_BATCHES)]
 
 
+def placed(flat: dict, arch: str, dm) -> dict:
+    """``arch``'s parameters of ``flat`` (``params.npz``) placed over
+    ``dm`` by ``param_specs``."""
+    from repro_torch.dist import sharding
+    from repro_torch.pytree import tree_map
+
+    def leaf(a):
+        t = torch.from_numpy(np.array(a))
+        return t.view(torch.bfloat16) if a.dtype == np.uint16 else t
+    params = tree_map(leaf, tree_of(flat, arch))
+    return sharding.place(params, sharding.param_specs(params, dm), dm)
+
+
 def main(rank: int, port: int, workdir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch import configs
-    from repro_torch.dist import sharding
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.serve.admit_queue import AdmitQueue
@@ -88,21 +100,13 @@ def main(rank: int, port: int, workdir: str) -> None:
     flat = dict(np.load(os.path.join(workdir, "params.npz")))
     out = {}
 
-    def placed(arch):
-        def leaf(a):
-            t = torch.from_numpy(np.array(a))
-            return t.view(torch.bfloat16) if a.dtype == np.uint16 else t
-        from repro_torch.pytree import tree_map
-        params = tree_map(leaf, tree_of(flat, arch))
-        return sharding.place(params, sharding.param_specs(params, dm), dm)
-
     def stack(arch, resume):
         cfg = configs.get_arch(arch).reduced()
         idx = MonarchKVIndex(KVIndexConfig(**kv_config(resume)), device="cpu",
                              slab_store=KVSlabStore() if resume else None)
         queue = AdmitQueue(idx, background=False)
         prefill_fn, decode_fn, _ = serve.build_model_fns(
-            placed(arch), cfg, max_seq=S + DECODE, decode_tokens=DECODE,
+            placed(flat, arch, dm), cfg, max_seq=S + DECODE, decode_tokens=DECODE,
             index=idx, resume=resume)
         return cfg, idx, queue, prefill_fn, decode_fn
 

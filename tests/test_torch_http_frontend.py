@@ -88,9 +88,14 @@ def _req(fe: HttpFrontend, method: str, path: str, body=None,
     return resp.status, doc, headers
 
 
-def _wait_for(pred, seconds: float = 5.0) -> None:
+def _wait_for(pred, what: str, seconds: float = 30.0) -> None:
+    """Poll ``pred`` until it holds; fail the test, naming ``what``, if it
+    still does not after ``seconds`` (a loaded machine starts threads
+    late, and a check made before the state it needs is a race)."""
     deadline = time.monotonic() + seconds
-    while not pred() and time.monotonic() < deadline:
+    while not pred():
+        if time.monotonic() > deadline:
+            pytest.fail(f"waited {seconds} s for {what}")
         time.sleep(0.005)
 
 
@@ -161,8 +166,10 @@ def test_bad_requests():
 
 def test_429_on_full_router_queue_with_retry_after():
     gate = threading.Event()
+    held = threading.Event()
 
     def prefill(toks, hits):
+        held.set()
         gate.wait(10)
 
     with _frontend(prefill=prefill, n_workers=1, max_queue=1) as (fe, q):
@@ -174,10 +181,12 @@ def test_429_on_full_router_queue_with_retry_after():
 
         a = threading.Thread(target=client, args=(0,))
         a.start()                       # occupies the single worker
-        _wait_for(lambda: fe.router.depth() >= 1)
+        _wait_for(held.is_set, "request 0 to reach the worker's prefill")
+        _wait_for(lambda: fe.router.depth() == 1, "router depth 1")
         b = threading.Thread(target=client, args=(1,))
         b.start()                       # fills the queue (bound = 1)
-        _wait_for(lambda: fe.router.depth() >= 2)
+        _wait_for(lambda: fe.router.depth() >= 2,
+                  "request 1 queued behind it (router depth 2)")
 
         status, doc, headers = _req(fe, "POST", "/v1/generate",
                                     {"tokens": _toks(2).tolist()})
@@ -253,17 +262,17 @@ def test_micro_batcher_coalesces_same_shape_requests():
 
         t0 = threading.Thread(target=client, args=(0, 2))
         t0.start()
-        _wait_for(lambda: bool(calls))  # request 0 is in prefill
+        _wait_for(lambda: bool(calls), "request 0 in prefill")
         rest = [threading.Thread(target=client, args=(i, 2))
                 for i in (1, 2, 3)]
         for t in rest:
             t.start()
-        _wait_for(lambda: fe.router.depth() >= 4)
+        _wait_for(lambda: fe.router.depth() >= 4, "router depth 4")
         # a different-shape request lands BEHIND them (FIFO preserved)
         t4 = threading.Thread(target=client, args=(4, 3))
         t4.start()
         rest.append(t4)
-        _wait_for(lambda: fe.router.depth() >= 5)
+        _wait_for(lambda: fe.router.depth() >= 5, "router depth 5")
         gate.set()
         for t in [t0] + rest:
             t.join(10)
@@ -368,7 +377,7 @@ def test_graceful_shutdown_drains_without_losing_admissions():
                    for i in range(3)]
         for t in threads:
             t.start()
-        _wait_for(lambda: fe.router.depth() >= 3)
+        _wait_for(lambda: fe.router.depth() >= 3, "router depth 3")
 
         fe.begin_shutdown()             # the SIGTERM half
         status, _, _ = _req(fe, "POST", "/v1/generate",

@@ -77,11 +77,12 @@ def _reference(arch, resume, jp):
     return SimpleNamespace(records=recs, gaps=gaps, index=ji)
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    work = tmp_path_factory.mktemp("mesh_serve")
+def write_params(work: Path, archs) -> dict:
+    """The reference's reduced parameters of ``archs`` to
+    ``work/params.npz`` (``{arch}/{leaf path}``, bf16 as uint16 bits);
+    returns the JAX trees."""
     jps, flat = {}, {}
-    for arch in ranks.CASES:
+    for arch in archs:
         jps[arch] = j_tf.init_params(jax.random.PRNGKey(0),
                                      j_configs.get_arch(arch).reduced())
         for path, leaf in jax.tree_util.tree_leaves_with_path(jps[arch]):
@@ -90,6 +91,13 @@ def run(tmp_path_factory):
             flat[key] = a.view(np.uint16) if a.dtype.name == "bfloat16" \
                 else a
     np.savez(work / "params.npz", **flat)
+    return jps
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    work = tmp_path_factory.mktemp("mesh_serve")
+    jps = write_params(work, ranks.CASES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     port = _free_port()
     procs = []

@@ -197,6 +197,7 @@ def _port_files():
         ROOT / "chip_smoke.py",
         ROOT / "tests" / "_torch_mesh_ranks.py",
         ROOT / "tests" / "_torch_mesh_serve_ranks.py",
+        ROOT / "tests" / "_torch_mesh_mp_ranks.py",
         ROOT / "tests" / "_torch_httpd_diverged.py"] + [
         ROOT / "examples" / f"{name}.py" for name in PORT_EXAMPLES]
 
@@ -235,6 +236,8 @@ import chip_smoke
 sys.path.insert(0, "examples")
 import train_lm_torch, quickstart_torch, kv_store_torch
 import string_search_torch, serve_prefix_cache_torch
+sys.path.insert(0, "tests")
+import _torch_mesh_mp_ranks
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
 assert {{"repro_torch.serve.http_frontend",
          "repro_torch.launch.httpd", "repro_torch.models.moe",

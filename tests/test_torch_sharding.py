@@ -136,3 +136,47 @@ def test_host_mesh_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="n_devices"):
         make_host_mesh()
+
+
+# ---------------------------------------------------------------------------
+# The raw gather (``sharding._Gather``) on a (2, 2) mesh of four gloo
+# processes (``tests/_torch_mesh_mp_ranks.py gather``), against DTensor's
+# own redistribution of the same placed tensor.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def gathered(tmp_path_factory):
+    from test_torch_mesh_model_parallel import finish_ranks, start_ranks
+    import _torch_mesh_mp_ranks as mp
+    work = tmp_path_factory.mktemp("gather")
+    return finish_ranks("gather", start_ranks("gather", mp.GATHER_WORLD,
+                                              work), work)
+
+
+@pytest.mark.parametrize("name", ["full", "replicate_dim", "redistribute"])
+@pytest.mark.parametrize("case", ["shard0_shard1", "shard1_shard1",
+                                  "shard2_replicate", "partial_shard0",
+                                  "shard2_partial", "partial_partial"])
+def test_raw_gather_matches_dtensor(gathered, case, name):
+    """Values (exact but for the order of a partial sum's adds) and the
+    gradient of a weighted sum, on every process."""
+    for r, got in enumerate(gathered):
+        key = f"{case}/{name}"
+        np.testing.assert_allclose(got[f"{key}/raw"], got[f"{key}/dtensor"],
+                                   rtol=1e-6, atol=1e-6, err_msg=(r, key))
+        np.testing.assert_array_equal(got[f"{key}/raw_grad"],
+                                      got[f"{key}/dtensor_grad"],
+                                      err_msg=(r, key))
+
+
+def test_gather_columns_in_block_order(gathered):
+    """Two activations of one dtype, split over both mesh dimensions
+    (process c0 * 2 + c1 holds block c0 * 2 + c1), gathered by one raw
+    all-gather."""
+    want0 = np.concatenate([np.arange(6.0).reshape(2, 3) + 10 * r
+                            for r in range(4)], axis=1)
+    want1 = np.concatenate([np.arange(2.0).reshape(2, 1) - 10 * r
+                            for r in range(4)], axis=1)
+    for got in gathered:
+        np.testing.assert_array_equal(got["columns/0"], want0)
+        np.testing.assert_array_equal(got["columns/1"], want1)
