@@ -122,10 +122,9 @@ code 1) on failure:
    checked by value or its error recorded; the two that kill the process
    on the card's torch (the functional all-gather, so DTensor's Shard ->
    Replicate) run in pairs of their own, their exit codes recorded.  So
-   the model-parallel step of training, whose backward still takes
-   DTensor's gathers, does not run on one card; serving gathers by raw
-   collectives (phase 3g (c), (d)).  (b) zamba2-2.7b at full width
-   and 6 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
+   every move of a placed tensor, serving (phase 3g (c), (d)) and
+   training ((c) below), goes by raw collectives.  (b) zamba2-2.7b at
+   full width and 6 layers on a ``(2, 1)`` ``("data", "model")`` mesh, 2 x 512
    tokens (one row a rank): rank 0 first runs the one-process step of the
    same seed and batch on the card; then ``init_state`` places the state
    over the mesh and one step runs; the loss within 1e-3, the gradient
@@ -136,7 +135,18 @@ code 1) on failure:
    placed state saved on both ranks and restored by rank 0 bit for bit;
    each rank's collectives and their output bytes
    (``roofline.analysis.CollectiveCounter`` over the first step), both
-   steps' seconds and its peak memory.
+   steps' seconds and its peak memory.  (c) The model split over the two
+   ranks, on ``(1, 2)``, in (b)'s pair of processes: (b)'s configuration
+   held to the same one-process step (not run again), then yi-9b at full
+   width and 2 layers (its vocabulary split over ``model`` in the
+   embedding and unembedding, its 4 KV heads over 2) held to its own
+   one-process step, which rank 0 runs first; (b)'s bounds and records
+   (zamba2-2.7b's checkpoint too; yi-9b's 10.4 GB state is not saved,
+   for the script's time), and both steps of each under a collective
+   counter that refuses, by name and before it runs, a functional
+   all-gather (``roofline.analysis.NoFunctionalGather``): every gather
+   and cut of the forward, the recomputation, the backward and AdamW is
+   ``dist/sharding.py``'s raw one.
 3g. Serving over a ``torch.distributed`` mesh.  Phase 3f's ranks are
    gone and the card's allocated memory must be back to its level before
    phase 3.  Every part runs two ranks on ``cuda:0`` (gloo) under
@@ -2104,6 +2114,9 @@ MESH_BATCH, MESH_SEQ, MESH_SEED = 2, 512, 13
 #: (b): zamba2-2.7b at full width and one layer group (6 layers; 12 until
 #: phase 3g and 9 (d) needed the script's time), on a (2, 1) mesh
 MESH_ARCH, MESH_LAYERS, MESH_SHAPE = "zamba2-2.7b", 6, (2, 1)
+#: (c): (b)'s configuration, then yi-9b at full width and 2 layers (the
+#: vocabulary split over model, 4 KV heads over 2), on a (1, 2) mesh
+MP_SHAPE, MP_ARCH, MP_LAYERS = (1, 2), "yi-9b", 2
 #: the collectives the probe runs on a two-rank gloo group of cuda:0
 #: tensors: raw c10d calls, then the DTensor redistributions they carry
 PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
@@ -2112,12 +2125,14 @@ PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
           "dtensor_partial_to_shard", "dtensor_shard0_to_shard1")
 #: probes that kill both ranks with SIGSEGV on the card's torch (2.11,
 #: ROADMAP Queue 3 item 18): the functional all-gather DTensor's Shard ->
-#: Replicate runs, so every gather on the serving path is the raw one
-#: (``dist/sharding.py``) and a model-parallel train step does not run on
-#: one card.  Each runs in a pair of its own.
+#: Replicate runs, so every gather and cut on the serving path and in
+#: the train step is a raw one (``dist/sharding.py``).  Each runs in a
+#: pair of its own.
 PROBES_FATAL = ("functional_all_gather", "dtensor_shard_to_replicate")
-#: what (b) needs: the gradient all-reduce (a Partial -> Replicate)
-MESH_NEEDS = ("all_reduce", "dtensor_partial_to_replicate")
+#: what (b) and (c) need: the gradient all-reduce (a Partial ->
+#: Replicate), and (c) the raw all-gather
+MESH_NEEDS = ("all_reduce", "dtensor_partial_to_replicate",
+              "all_gather_into_tensor")
 
 
 def start_ranks(kind: str, workdir: str) -> list:
@@ -2293,48 +2308,59 @@ def probe_child(np, torch, rank: int, port: int, names: list) -> dict:
     return out
 
 
-def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
-    """(b) One rank.  Rank 0 first runs the one-process step of the same
-    configuration, seed and global batch on the card (plain tensors) and
-    keeps its metrics, the state after it and the initial params on the
-    host, then frees the card.  Both ranks then join the group,
-    ``init_state`` places the state over the mesh, and one step runs on
-    the placed global batch (its collectives counted); each leaf gathered
-    is held against the one-process state; the placed state is saved on
-    both ranks and rank 0 restores it bit for bit; a second step is
-    timed."""
-    from repro_torch.configs import get_arch
+def one_process_step(torch, cfg, dcfg, dev) -> dict:
+    """Rank 0's one-process step of ``cfg`` on the card (plain tensors)
+    from ``init_state(MESH_SEED)`` on ``dcfg``'s batch 0: its seconds,
+    metrics, the state after it and the initial params, on the host; the
+    card is freed after."""
+    from repro_torch.data import pipeline
+    from repro_torch.pytree import tree_paths
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step
+
+    state = step.init_state(MESH_SEED, cfg, device=dev)
+    p0 = {p: v.cpu() for p, v in tree_paths(state["params"])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step.make_train_step(cfg, opt.OptConfig())(
+        state, pipeline.batch_at(dcfg, 0))
+    torch.cuda.synchronize()
+    one = {"seconds": time.perf_counter() - t0,
+           "metrics": {k: float(v) for k, v in m.items()},
+           "state": {p: v.cpu() for p, v in tree_paths(state)}, "p0": p0}
+    del state, m
+    free_card(torch)
+    return one
+
+
+def mesh_step_check(np, torch, rank: int, cfg, dcfg, shape, one,
+                    ckpt: str, guarded: bool) -> dict:
+    """One placed step of ``cfg`` over a ``("data", "model")`` mesh of
+    ``shape`` from ``init_state(MESH_SEED, device_mesh=)``, on the placed
+    global batch 0, its collectives counted (refused where they would
+    gather functionally, with ``guarded``); rank 0 holds the metrics and
+    every gathered leaf to the one-process step ``one`` by (b)'s bounds;
+    the placed state is saved to ``ckpt`` (unless None) on every rank and
+    restored by rank 0 bit for bit; a second step is timed.  Returns
+    this rank's record; the card is freed after."""
+    import shutil
+
     from repro_torch.data import pipeline
     from repro_torch.dist import checkpoint, sharding
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.pytree import tree_paths
-    from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.roofline.analysis import (CollectiveCounter,
+                                               NoFunctionalGather)
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step
 
-    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
     dev = torch.device(MESH_DEV)
     ocfg = opt.OptConfig()
-    dcfg = pipeline.DataConfig(cfg.vocab_size, MESH_SEQ, MESH_BATCH,
-                               seed=MESH_SEED)
-    one = None
-    if rank == 0:
-        state = step.init_state(MESH_SEED, cfg, device=dev)
-        p0 = {p: v.cpu() for p, v in tree_paths(state["params"])}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step.make_train_step(cfg, ocfg)(state,
-                                                   pipeline.batch_at(dcfg, 0))
-        torch.cuda.synchronize()
-        one = {"seconds": time.perf_counter() - t0,
-               "metrics": {k: float(v) for k, v in m.items()},
-               "state": {p: v.cpu() for p, v in tree_paths(state)}}
-        del state, m
-        free_card(torch)
-    join_group(torch, rank, port)
-    mesh = Mesh(("data", "model"), MESH_SHAPE)
+    mesh = Mesh(("data", "model"), shape)
     dm = device_mesh(mesh, dev.type)
+    free_card(torch)
     torch.cuda.reset_peak_memory_stats()
+    counter = NoFunctionalGather if guarded else CollectiveCounter
 
     def placed_batch(i):
         b = {k: torch.as_tensor(v, device=dev)
@@ -2343,7 +2369,7 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
 
     state = step.init_state(MESH_SEED, cfg, device=dev, device_mesh=dm)
     step_fn = step.make_train_step(cfg, ocfg)
-    comms = CollectiveCounter()
+    comms = counter()
     batch = placed_batch(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2352,7 +2378,8 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     metrics = {k: float(v) for k, v in m.items()}
-    out = {"rank": rank, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+    out = {"rank": rank, "arch": cfg.name,
+           "mesh": dict(zip(mesh.axis_names, mesh.shape)),
            "layers": cfg.n_layers, "metrics": metrics,
            "first_step_s": first_s, "collectives": comms.counts,
            "collective_bytes": comms.nbytes,
@@ -2366,19 +2393,34 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
                 abs(metrics["grad_norm"] - want["grad_norm"]) > \
                 2e-2 * want["grad_norm"] or \
                 abs(metrics["lr"] - want["lr"]) > 1e-6 * want["lr"]:
-            raise AssertionError(f"mesh step {metrics} against the "
-                                 f"one-process step {want}")
+            raise AssertionError(f"{cfg.name} mesh step {metrics} against "
+                                 f"the one-process step {want}")
         out.update(one_process_s=one["seconds"], one_process=want)
+    t0 = time.perf_counter()
+    if ckpt is not None:
+        checkpoint.save(ckpt, 1, state)           # every rank
+        out["save_s"] = time.perf_counter() - t0
+        if rank == 0:
+            _, restored = checkpoint.restore_latest(ckpt, state)
+            restored = dict(tree_paths(restored))
+    t0 = time.perf_counter()
     worst = {"m": 0.0, "v": 0.0, "params": 0.0}
     lr, wd = metrics["lr"], ocfg.weight_decay
     for path, leaf in tree_paths(state):
-        full = leaf.full_tensor()                 # every rank joins
-        if rank != 0 or path == ("opt", "step"):
+        full = sharding.full(leaf)                # every rank joins
+        if rank != 0:
+            continue
+        if ckpt is not None and not torch.equal(restored.pop(path), full):
+            raise AssertionError(f"{cfg.name} {'/'.join(path)}: the "
+                                 "checkpoint saved on two ranks is not "
+                                 "restored bit for bit")
+        if path == ("opt", "step"):
             continue
         ref = one["state"][path].to(dev)
         name = path[1] if path[0] == "opt" else "params"
         if name == "params":
-            reach = 2 * lr * (1 + wd * p0[path[1:]].to(dev).abs()) + 1e-7
+            reach = 2 * lr * (1 + wd * one["p0"][path[1:]].to(dev).abs()) \
+                + 1e-7
             err = float(((full - ref).abs() / reach).max())
             limit = 1.0
         else:
@@ -2386,35 +2428,67 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
                         torch.linalg.vector_norm(ref).clamp_min(1e-30))
             limit = 5e-2 if name == "m" else 1e-1
         if not err <= limit:
-            raise AssertionError(f"{'/'.join(path)}: {err} of its "
-                                 f"bound against the one-process step")
+            raise AssertionError(f"{cfg.name} {'/'.join(path)}: {err} of "
+                                 "its bound against the one-process step")
         worst[name] = max(worst[name], err)
+    out["check_s"] = time.perf_counter() - t0
     if rank == 0:
-        del one, p0
+        restored = None
         out["worst_against_one_process"] = worst
-    ckpt = str(pathlib.Path(workdir) / "ckpt")
-    t0 = time.perf_counter()
-    checkpoint.save(ckpt, 1, state)               # every rank
-    out["save_s"] = time.perf_counter() - t0
-    if rank == 0:
-        _, restored = checkpoint.restore_latest(ckpt, state)
-        restored = dict(tree_paths(restored))
-    for path, leaf in tree_paths(state):
-        full = leaf.full_tensor()
-        if rank == 0 and not torch.equal(restored.pop(path), full):
-            raise AssertionError(f"{'/'.join(path)}: the checkpoint saved "
-                                 "on two ranks is not restored bit for bit")
+        if ckpt is not None:
+            shutil.rmtree(ckpt, ignore_errors=True)
     batch = placed_batch(1)
     torch.distributed.barrier()                   # rank 0 compared last
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, m = step_fn(state, batch)
-    loss2 = float(m["loss"])
+    with counter():
+        state, m = step_fn(state, batch)
+        loss2 = float(m["loss"])
     torch.cuda.synchronize()
     out.update(second_step_s=time.perf_counter() - t0, second_loss=loss2,
                peak_bytes=torch.cuda.max_memory_allocated())
     if not np.isfinite(loss2):
-        raise AssertionError(f"second step loss {loss2}")
+        raise AssertionError(f"{cfg.name} second step loss {loss2}")
+    del state, m, batch
+    free_card(torch)
+    return out
+
+
+def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
+    """(b), then (c), on one rank.  Rank 0 first runs the one-process
+    step of (b)'s configuration, seed and global batch on the card and
+    keeps it on the host (:func:`one_process_step`); both ranks join the
+    group and run (b) on MESH_SHAPE, then (c) on MP_SHAPE: (b)'s
+    configuration held to the same one-process step, its checkpoint
+    too, then MP_ARCH (rank 0 runs its one-process step first, the other
+    rank waiting; not saved: 10.4 GB of state took 154 s to save on the
+    H100's host), each step under ``analysis.NoFunctionalGather``
+    (:func:`mesh_step_check`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+
+    dev = torch.device(MESH_DEV)
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+    dcfg = pipeline.DataConfig(cfg.vocab_size, MESH_SEQ, MESH_BATCH,
+                               seed=MESH_SEED)
+    one = one_process_step(torch, cfg, dcfg, dev) if rank == 0 else None
+    join_group(torch, rank, port)
+    ckpt = str(pathlib.Path(workdir) / "ckpt")
+    out = mesh_step_check(np, torch, rank, cfg, dcfg, MESH_SHAPE, one,
+                          ckpt + "_dp", guarded=False)
+    t0 = time.perf_counter()
+    mp = {MESH_ARCH: mesh_step_check(np, torch, rank, cfg, dcfg, MP_SHAPE,
+                                     one, ckpt + "_mp", guarded=True)}
+    del one
+    cfg = dataclasses.replace(get_arch(MP_ARCH), n_layers=MP_LAYERS)
+    dcfg = pipeline.DataConfig(cfg.vocab_size, MESH_SEQ, MESH_BATCH,
+                               seed=MESH_SEED)
+    one = one_process_step(torch, cfg, dcfg, dev) if rank == 0 else None
+    torch.distributed.barrier()
+    mp[MP_ARCH] = mesh_step_check(np, torch, rank, cfg, dcfg, MP_SHAPE, one,
+                                  None, guarded=True)
+    out["model_parallel"] = mp
+    out["model_parallel_s"] = time.perf_counter() - t0
     torch.distributed.destroy_process_group()
     return out
 
@@ -2440,10 +2514,36 @@ def mesh_child(argv: list) -> int:
     return 0
 
 
+def mesh_step_line(part: str, ranks: list) -> str:
+    """One log line of a part's placed step: both ranks' records, rank 0
+    holding the one-process step's numbers."""
+    r0 = ranks[0]
+    if r0["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"{part}: the ranks' metrics differ: "
+                             f"{[r['metrics'] for r in ranks]}")
+    return (
+        f"phase 3f {part} {r0['arch']} x{r0['layers']} on {r0['mesh']}, "
+        f"{MESH_BATCH} x {MESH_SEQ}: loss {r0['metrics']['loss']:.6f} (one "
+        f"process {r0['one_process']['loss']:.6f}), grad norm "
+        f"{r0['metrics']['grad_norm']:.6f} "
+        f"({r0['one_process']['grad_norm']:.6f}); worst against one "
+        f"process {r0['worst_against_one_process']}; steps "
+        f"{[round(r['first_step_s'], 2) for r in ranks]} s cold, "
+        f"{[round(r['second_step_s'], 2) for r in ranks]} s warm (one "
+        f"process {r0['one_process_s']:.2f} s); "
+        + (f"save {[round(r['save_s'], 2) for r in ranks]} s, restored bit "
+           "for bit; " if "save_s" in r0 else "not saved; ")
+        + f"held in {r0['check_s']:.2f} s; peak "
+        f"{[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB; "
+        f"collectives a rank {[r['collectives'] for r in ranks]}, "
+        f"{[r['collective_bytes'] for r in ranks]} bytes")
+
+
 def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
-    """Phase 3f: free the card of phase 3e, then (a) the collective probe
-    and (b) the data-parallel zamba2-2.7b steps, each on two ranks of
-    ``cuda:0`` spawned as child processes."""
+    """Phase 3f: free the card of phase 3e, then (a) the collective probe,
+    (b) the data-parallel zamba2-2.7b steps and (c) the model-parallel
+    zamba2-2.7b and yi-9b steps, each on two ranks of ``cuda:0`` spawned
+    as child processes ((b) and (c) in one pair)."""
     import shutil
     import tempfile
 
@@ -2459,31 +2559,25 @@ def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
         probe = probe_collectives(tmp)
         log(f"phase 3f (a) gloo on {MESH_DEV} tensors: {probe}")
         if any(probe[name] != "ok" for name in MESH_NEEDS):
-            raise AssertionError(f"(b) needs {MESH_NEEDS}: {probe}")
+            raise AssertionError(f"(b) and (c) need {MESH_NEEDS}: {probe}")
         ranks = spawn_ranks("dp", tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if ranks[0]["metrics"] != ranks[1]["metrics"]:
-        raise AssertionError(f"the ranks' metrics differ: "
-                             f"{[r['metrics'] for r in ranks]}")
-    r0 = ranks[0]
-    log(f"phase 3f (b) {MESH_ARCH} x{MESH_LAYERS} on {r0['mesh']}, "
-        f"{MESH_BATCH} x {MESH_SEQ}: loss {r0['metrics']['loss']:.6f} (one "
-        f"process {r0['one_process']['loss']:.6f}), grad norm "
-        f"{r0['metrics']['grad_norm']:.6f} "
-        f"({r0['one_process']['grad_norm']:.6f}); worst against one "
-        f"process {r0['worst_against_one_process']}; steps "
-        f"{[round(r['first_step_s'], 2) for r in ranks]} s cold, "
-        f"{[round(r['second_step_s'], 2) for r in ranks]} s warm (one "
-        f"process {r0['one_process_s']:.2f} s); save "
-        f"{[round(r['save_s'], 2) for r in ranks]} s, restored bit for "
-        f"bit; peak {[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB; "
-        f"collectives a rank {r0['collectives']}, "
-        f"{r0['collective_bytes']} bytes")
+    log(mesh_step_line("(b)", ranks))
+    mp = {arch: [r["model_parallel"][arch] for r in ranks]
+          for arch in (MESH_ARCH, MP_ARCH)}
+    for arch, mp_ranks in mp.items():
+        log(mesh_step_line("(c)", mp_ranks))
+    mp_s = [r["model_parallel_s"] for r in ranks]
+    log(f"phase 3f (c): {[round(t, 1) for t in mp_s]} s a rank")
     wall = time.perf_counter() - t0
     log(f"phase 3f: {wall:.1f} s")
-    report = {"probe": probe, "data_parallel": ranks, "wall_s": wall,
-              "card": smi}
+    report = {"probe": probe,
+              "data_parallel": [{k: v for k, v in r.items()
+                                 if not k.startswith("model_parallel")}
+                                for r in ranks],
+              "model_parallel": mp, "model_parallel_s": mp_s,
+              "wall_s": wall, "card": smi}
     print(json.dumps({"mesh_training": report}), flush=True)
     return report
 

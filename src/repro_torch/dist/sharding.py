@@ -29,20 +29,25 @@ The reference's ``to_named`` (specs to JAX ``NamedSharding``s) is
 each leaf as a ``DTensor``.  :func:`gather` is the reference's
 ``np.asarray`` of a global array.
 
-Every split that a placed tensor gives up moves its blocks by the raw
-``torch.distributed`` collectives (``all_gather_into_tensor``, and
-``all_reduce`` for a partial sum), which every backend runs on card
+Every split that a placed tensor gives up or takes moves its blocks by
+the raw ``torch.distributed`` collectives (``all_gather_into_tensor``,
+and ``all_reduce`` for a partial sum), which every backend runs on card
 tensors, never by DTensor's functional all-gather, which a gloo group of
 CUDA tensors does not survive on some versions (ROADMAP Queue 3 item
-18): :class:`_Gather` is that one gather, differentiable (its backward
-takes each process's own slice of the gradient, as DTensor's
-``Replicate`` -> ``Shard`` does), and :func:`redistribute` (DTensor's
-``redistribute`` with every undone split gathered by it),
-:func:`replicate_dim`, :func:`full`, :func:`gather_rows` and
-:func:`gather_columns` are built on it.  :func:`zeros` makes a placed
-tensor from its blocks alone (a decode cache), :func:`vocab_rows` looks
-up the rows of a vocabulary-sharded table, and :func:`local_map` runs a
-function on each process's blocks.
+18), in the forward pass or the backward: :class:`_Gather` is that one
+gather, differentiable (its backward takes each process's own slice of
+the gradient, as DTensor's ``Replicate`` -> ``Shard`` does), and
+:class:`_Cut` its mirror (a process's own slice, its backward the raw
+gather of the gradient).  :func:`redistribute` (DTensor's
+``redistribute`` with every undone split gathered by the one and every
+new split cut by the other; DTensor's own is left the partial sums),
+:func:`constrain`, :func:`replicate_dim`, :func:`full`,
+:func:`gather_rows` and :func:`gather_columns` are built on them, and
+:class:`_Placed` wraps blocks as placed tensors whose gradients move by
+:func:`redistribute`.  :func:`zeros` makes a placed tensor from its
+blocks alone (a decode cache), :func:`vocab_rows` looks up the rows of a
+vocabulary-sharded table, and :func:`local_map` runs a function on each
+process's blocks.
 """
 from __future__ import annotations
 
@@ -254,7 +259,7 @@ def constrain(t, axes):
         return t
     dm = t.device_mesh
     spec = _guard(axes, t.shape, dm)
-    return t.redistribute(dm, placements(spec, dm.mesh_dim_names))
+    return redistribute(t, placements(spec, dm.mesh_dim_names))
 
 
 def replicate_dim(t: DTensor, dim: int) -> DTensor:
@@ -318,7 +323,7 @@ def local_map(fn, tensors, in_pl, out_pl):
     single = not isinstance(out, tuple)
     outs = (out,) if single else out
     pls = [out_pl] * len(outs) if every else out_pl
-    wrapped = tuple(DTensor.from_local(o, dm, pl, run_check=False)
+    wrapped = tuple(_Placed.apply(o, dm, tuple(pl), None, None)
                     for o, pl in zip(outs, pls))
     return wrapped[0] if single else wrapped
 
@@ -351,9 +356,9 @@ def vocab_rows(table: DTensor, ids) -> DTensor:
                                          block)
     rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
     split = [p == Shard(0) for p in table.placements]
-    partial = DTensor.from_local(
-        rows, dm, [Partial() if split[i] else ids_pl[i]
-                   for i in range(dm.ndim)], run_check=False)
+    partial = _Placed.apply(rows, dm, tuple(
+        Partial() if split[i] else ids_pl[i] for i in range(dm.ndim)),
+        None, None)
     return partial.redistribute(dm, [Replicate() if split[i] else ids_pl[i]
                                      for i in range(dm.ndim)])
 
@@ -372,6 +377,32 @@ def _all_gather(local: torch.Tensor, dim: int, device_mesh,
     torch.distributed.all_gather_into_tensor(
         out, rows, group=device_mesh.get_group(mesh_dim))
     return out.movedim(0, dim)
+
+
+class _Placed(torch.autograd.Function):
+    """``local`` as a ``DTensor`` placed by ``pl`` over ``dm`` (of global
+    ``shape`` and ``stride`` where given): ``DTensor.from_local``, whose
+    backward brings the gradient to ``pl`` by :func:`redistribute`, raw
+    collectives, with a ``Partial`` placement's gradient made
+    ``Replicate`` (the gradient of each part of a sum is the whole
+    sum's).  DTensor's own backward of ``from_local`` differs between
+    versions (a partial gradient of a partial output is reduced on some,
+    passed on as it is on others) and may take its functional
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, local, dm, pl, shape, stride):
+        ctx.set_materialize_grads(False)
+        ctx.pl = pl
+        return DTensor.from_local(local, dm, list(pl), run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor):
+            grad = redistribute(grad, [Replicate() if p.is_partial() else p
+                                       for p in ctx.pl]).to_local()
+        return grad, None, None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -424,27 +455,96 @@ def _gathered(t: DTensor, dims) -> DTensor:
     local = t.to_local(grad_placements=[
         Replicate() if p.is_partial() else p for p in pl])
     local = _Gather.apply(local, dm, pl, dims)
-    return DTensor.from_local(
-        local, dm, [Replicate() if i in dims else p
-                    for i, p in enumerate(pl)],
-        run_check=False, shape=t.shape, stride=t.stride())
+    return _Placed.apply(local, dm, tuple(Replicate() if i in dims else p
+                                          for i, p in enumerate(pl)),
+                         t.shape, t.stride())
+
+
+class _Cut(torch.autograd.Function):
+    """``local``, this process's block of a tensor placed over ``dm``,
+    cut to its own slice at each ``(mesh dimension, tensor dimension)``
+    of ``cuts`` (the mesh dimensions ``Replicate`` before, in mesh order,
+    each splitting the block the earlier left, as ``place_leaf`` cuts);
+    no collective.  Backward, the mirror of :class:`_Gather`: the
+    gradient's slices gathered by the raw all-gather, the last mesh
+    dimension first (DTensor's ``Shard`` -> ``Replicate`` would take the
+    functional one)."""
+
+    @staticmethod
+    def forward(ctx, local, dm, cuts):
+        ctx.dm, ctx.cuts = dm, cuts
+        coord = dm.get_coordinate()
+        for i, d in cuts:
+            local = local.chunk(dm.size(i), d)[coord[i]]
+        return local.clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        for i, d in reversed(ctx.cuts):
+            grad = _all_gather(grad, d, ctx.dm, i)
+        return grad, None, None
+
+
+def _cut(t: DTensor, pl) -> DTensor:
+    """``t`` with each mesh dimension that is ``Replicate`` in ``t`` and
+    ``Shard`` in ``pl`` split by :class:`_Cut` (even splits only); every
+    other placement of ``pl`` must be ``t``'s already."""
+    dm, src = t.device_mesh, list(t.placements)
+    cuts = []
+    for i, (p, q) in enumerate(zip(src, pl)):
+        if p == q:
+            continue
+        if not (isinstance(p, Replicate) and isinstance(q, Shard)):
+            raise ValueError(f"cannot cut {p} to {q} on mesh dimension {i}")
+        cuts.append((i, q.dim))
+    if not cuts:
+        return t
+    block_bounds(t.shape, pl, dm)                    # even splits only
+    local = t.to_local(grad_placements=[
+        Replicate() if p.is_partial() else p for p in src])
+    return _Placed.apply(_Cut.apply(local, dm, tuple(cuts)), dm, tuple(pl),
+                         t.shape, t.stride())
+
+
+def _undone(src, pl) -> list:
+    """The mesh dimensions of ``src`` to gather before moving to ``pl``:
+    each that splits a tensor dimension whose splits in ``pl`` do not
+    begin with ``src``'s (a split given up, moved to another dimension,
+    or with a new split put outside it)."""
+    out = []
+    for d in sorted({p.dim for p in src if isinstance(p, Shard)}):
+        have = [i for i, p in enumerate(src) if p == Shard(d)]
+        want = [i for i, q in enumerate(pl) if q == Shard(d)]
+        if want[:len(have)] != have:
+            out += have
+    return out
 
 
 def redistribute(t: DTensor, pl) -> DTensor:
-    """``t.redistribute(t.device_mesh, pl)`` with every split that ``pl``
-    gives up made whole first by :class:`_Gather` (each mesh dimension
-    that splits such a tensor dimension is gathered, and DTensor cuts
-    again what ``pl`` keeps split, a local slice): DTensor's own
-    redistribution is then left only partial sums to reduce and whole
-    dimensions to cut, never an all-gather."""
+    """``t.redistribute(t.device_mesh, pl)`` by raw collectives: every
+    split that ``pl`` gives up or moves (``Shard(a)`` -> ``Shard(b)``
+    too) is made whole first by :class:`_Gather`, DTensor then reduces
+    the partial sums (an all-reduce, or a reduce-scatter outside
+    autograd: its backward would gather, so a tensor that takes a
+    gradient is all-reduced and cut), and :class:`_Cut` makes every new
+    split.  DTensor's own redistribution is never asked for an
+    all-gather, in either pass."""
     src, pl = list(t.placements), list(pl)
-    undone = {p.dim for p, q in zip(src, pl) if isinstance(p, Shard)
-              and p != q}
-    t = _gathered(t, [i for i, p in enumerate(src)
-                      if isinstance(p, Shard) and p.dim in undone])
-    if list(t.placements) != pl:
-        t = t.redistribute(t.device_mesh, pl)
-    return t
+    if src == pl:
+        return t
+    t = _gathered(t, _undone(src, pl))
+    mid = []
+    for p, q in zip(t.placements, pl):
+        if p.is_partial() and isinstance(q, Shard) and t.requires_grad:
+            mid.append(Replicate())
+        elif p.is_partial() or (isinstance(p, Replicate) and
+                                q.is_partial()):
+            mid.append(q)
+        else:
+            mid.append(p)
+    if mid != list(t.placements):
+        t = t.redistribute(t.device_mesh, mid)
+    return _cut(t, pl)
 
 
 def full(x):

@@ -15,7 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -284,19 +284,55 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """The attention output (B, S, H, dh) through ``wo`` (H * dh, D).
-    Placed with its sequence split (sequence-sharded attention), each
-    process projects its own positions with ``wo`` whole, and the result
-    keeps the split: DTensor refuses, on some versions, to fold a split
-    sequence into the product's rows."""
-    if isinstance(out, DTensor) and Shard(1) in out.placements:
-        pl = [p if p in (Shard(0), Shard(1)) else Replicate()
-              for p in out.placements]
-        return sharding.local_map(
-            lambda o, w: o.reshape(o.shape[0], o.shape[1], -1) @ w,
-            (out, wo), (pl, [Replicate()] * len(pl)), pl)
+    """The attention output (B, S, H, dh) through ``wo`` (H * dh, D), a
+    row-parallel product on placed operands (:func:`row_parallel`, the
+    heads and head dimension folded into the contraction on each
+    process's blocks: DTensor refuses, on some versions, to fold a split
+    sequence into the product's rows)."""
+    if isinstance(out, DTensor):
+        return row_parallel(out, wo, cdim=2)
     b, s = out.shape[:2]
     return out.reshape(b, s, -1) @ wo
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, cdim: int = -1):
+    """``x @ w`` for a row-parallel weight (``wo``, ``w_down``: rows split
+    over ``model`` by ``param_specs``), ``x``'s dimensions from ``cdim``
+    on folded into the contraction.  Placed, it runs on each process's
+    blocks (``sharding.local_map``), per mesh dimension: where ``x``
+    splits its rows (the batch, a split sequence) they stay split and
+    ``w`` is taken whole there; else where ``w`` splits its rows and
+    ``x``'s dimension ``cdim`` splits as evenly (4 KV-sized heads do not
+    over 16), ``x`` takes the matching columns and the output is that
+    dimension's ``Partial`` sum (reduced by the caller); anything else
+    is whole.
+    Backward is two local products (``local_map`` states the gradients'
+    placements): no weight moves but where it was taken whole.  Plain
+    tensors: ``x @ w`` after the fold."""
+    cdim %= x.dim()
+
+    def fold(xl, wl):
+        return xl.reshape(xl.shape[:cdim] + (-1,)) @ wl
+
+    if not isinstance(x, DTensor):
+        return fold(x, w)
+    dm, ways = x.device_mesh, 1
+    x_pl, w_pl, out_pl = [], [], []
+    for i, (p, q) in enumerate(zip(x.placements, w.placements)):
+        if isinstance(p, Shard) and p.dim < cdim:
+            x_pl.append(p)
+            w_pl.append(Replicate())
+            out_pl.append(p)
+        elif q == Shard(0) and x.shape[cdim] % (ways * dm.size(i)) == 0:
+            ways *= dm.size(i)
+            x_pl.append(Shard(cdim))
+            w_pl.append(q)
+            out_pl.append(Partial())
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            out_pl.append(Replicate())
+    return sharding.local_map(fold, (x, w), (x_pl, w_pl), out_pl)
 
 
 def _decode_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, pos: int):
@@ -467,7 +503,7 @@ def mlp_block(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         up = silu(x @ params["w_gate"]) * up
     else:
         up = F.gelu(up, approximate="tanh")
-    return up @ params["w_down"]
+    return row_parallel(up, params["w_down"])
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

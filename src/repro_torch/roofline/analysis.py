@@ -152,6 +152,32 @@ class CollectiveCounter(TorchDispatchMode):
         return {**self.nbytes, "total": sum(self.nbytes.values())}
 
 
+class FunctionalGather(RuntimeError):
+    """A functional all-gather ran under :class:`NoFunctionalGather`."""
+
+
+class NoFunctionalGather(CollectiveCounter):
+    """A :class:`CollectiveCounter` that refuses DTensor's functional
+    all-gather (``_c10d_functional``, the op of its ``Shard`` ->
+    ``Replicate``), which a gloo group of CUDA tensors does not survive
+    on some torch versions (ROADMAP Queue 3 item 18): it raises
+    :class:`FunctionalGather` before the op runs, or with
+    ``raises=False`` counts it in ``fired`` and lets it run.  Every
+    collective is counted as by :class:`CollectiveCounter`."""
+
+    def __init__(self, raises: bool = True):
+        super().__init__()
+        self.raises, self.fired = raises, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "_c10d_functional" and \
+                "all_gather" in func._overloadpacket.__name__:
+            if self.raises:
+                raise FunctionalGather(f"{func} under the guard")
+            self.fired += 1
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
 def collective_bytes(fn, *args) -> dict:
     """Output bytes of the collectives ``fn(*args)`` issues on this
     process, by kind, and their ``total`` (the reference's dict; it reads

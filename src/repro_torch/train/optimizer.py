@@ -25,6 +25,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.dist import sharding
 from repro_torch.pytree import tree_map, tree_map_with_path, tree_paths
 
 F32 = torch.float32
@@ -104,10 +105,11 @@ def adamw_update(cfg: OptConfig, params: dict, opt_state: dict,
 
 
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``g`` redistributed to ``p``'s placements when ``p`` is placed
-    (an in-place update takes no mixed placements)."""
+    """``g`` redistributed to ``p``'s placements when ``p`` is placed (an
+    in-place update takes no mixed placements), by raw collectives
+    (``sharding.redistribute``)."""
     if isinstance(p, DTensor):
-        return g.redistribute(p.device_mesh, p.placements)
+        return sharding.redistribute(g, p.placements)
     return g
 
 

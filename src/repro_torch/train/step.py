@@ -16,7 +16,12 @@ Over a mesh (one process per position, the state and the batch placed
 as ``DTensor``s by :func:`state_specs` and ``sharding.batch_specs``)
 every process runs the same step, PyTorch's counterpart of the
 reference's one GSPMD program: DTensor's sharding rules choose the
-collectives, as XLA's do there.  The step runs under DTensor's
+collectives, as XLA's do there, except that every move of a placed
+tensor (forward, recomputation, backward and AdamW) is made by the raw
+collectives of ``dist/sharding.py`` and the row-parallel products run
+on each process's blocks (``layers.row_parallel``): DTensor's functional
+all-gather never runs, which a gloo group of CUDA tensors does not
+survive on some versions.  The step runs under DTensor's
 ``implicit_replication``, so the plain tensors the model builds on its
 device (positions, masks, attention's running max) act as replicated
 operands.
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig
@@ -105,10 +110,16 @@ def state_from_numpy(tree: dict, cfg: ArchConfig,
 
 def _rows(batch: dict, lo: int, hi: int) -> dict:
     """Rows ``lo:hi`` of the GLOBAL batch; a placed leaf is placed again
-    as it was (the slice may take rows that sat on other processes)."""
+    as it was (the slice may take rows that sat on other processes): its
+    rows gathered whole and cut again by raw collectives
+    (``sharding.redistribute``)."""
     def rows(v):
         if isinstance(v, DTensor):
-            return v[lo:hi].redistribute(v.device_mesh, v.placements)
+            dm = v.device_mesh
+            whole = [Replicate()] * dm.ndim
+            part = sharding.redistribute(v, whole).to_local()[lo:hi]
+            return sharding.redistribute(DTensor.from_local(
+                part, dm, whole, run_check=False), v.placements)
         return v[lo:hi]
     return {k: rows(v) for k, v in batch.items()}
 
@@ -168,7 +179,7 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = opt.OptConfig(),
                                      microbatches)
         params, new_opt, metrics = opt.adamw_update(
             ocfg, state["params"], state["opt"], grads)
-        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+        metrics = {k: sharding.full(v)
                    for k, v in dict(metrics, loss=loss).items()}
         return {"params": params, "opt": new_opt}, metrics
 

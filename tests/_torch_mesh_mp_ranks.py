@@ -26,7 +26,13 @@ by ``sharding.full``, with one tensor dimension by
 ``sharding.replicate_dim`` and moved to other placements by
 ``sharding.redistribute``, each beside DTensor's own redistribution of
 the same tensor; and the gradient of a seeded weighted sum through each
-beside DTensor's (``{case}/...``).  Output: ``WORKDIR/{mode}{RANK}.npz``.
+beside DTensor's (``{case}/...``); for each case of :data:`ROW_CASES` the
+row-parallel product ``layers.row_parallel`` beside the product of the
+operands DTensor made whole, with both operands' gradients
+(``row/{case}/...``).
+Each raw run is under a recording :class:`NoFunctionalGather`
+(``.../raw_functional``: the functional all-gathers it met).  Output:
+``WORKDIR/{mode}{RANK}.npz``.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.roofline.analysis import CollectiveCounter
+from repro_torch.roofline.analysis import FunctionalGather, NoFunctionalGather
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_mesh_serve_ranks as serve_ranks  # noqa: E402  (torch only)
@@ -55,30 +61,28 @@ GATHER_CASES = {
     "partial_shard0": (("P", "S0"), 0, ("R", "R")),
     "shard2_partial": (("S2", "P"), 2, ("S1", "R")),
     "partial_partial": (("P", "P"), 0, ("R", "R")),
+    # new splits (Replicate -> Shard) and moved ones (Shard(a) -> Shard(b)),
+    # by the raw cut: DTensor's backward of these gathers
+    "replicate_shard": (("R", "R"), 1, ("S1", "S2")),
+    "shard_to_shard": (("S0", "S1"), 0, ("S1", "S0")),
+    "shard_outside": (("R", "S0"), 0, ("S0", "S0")),
+    "partial_to_shard": (("P", "S1"), 1, ("S2", "S0")),
+}
+#: case -> (x's shape and placements, w's placements, the contraction's
+#: first dimension): ``layers.row_parallel(x, w)`` against the product of
+#: the operands made whole by DTensor (``full_tensor``; its own product
+#: refuses a split sequence on some versions), w (6, 5)
+ROW_CASES = {
+    "rows_columns": ((4, 8, 6), ("S0", "S2"), ("R", "S0"), 2),
+    "heads": ((4, 8, 2, 3), ("S0", "S2"), ("R", "S0"), 2),
+    "split_sequence": ((4, 8, 2, 3), ("S0", "S1"), ("R", "S0"), 2),
+    "whole_x": ((4, 8, 6), ("R", "R"), ("R", "S0"), 2),
 }
 
 
 def placement(code: str):
     from torch.distributed.tensor import Partial, Replicate, Shard
     return {"R": Replicate(), "P": Partial()}.get(code) or Shard(int(code[1]))
-
-
-class FunctionalGather(RuntimeError):
-    """A functional all-gather ran under :class:`NoFunctionalGather`."""
-
-
-class NoFunctionalGather(CollectiveCounter):
-    """A ``CollectiveCounter`` that raises :class:`FunctionalGather` on
-    every ``_c10d_functional`` all-gather (DTensor's ``Shard`` ->
-    ``Replicate``, whose gloo group of CUDA tensors dies on some torch
-    versions) and counts every other collective, raw ones included, by
-    kind and output bytes."""
-
-    def record(self, func, out) -> None:
-        if func.namespace == "_c10d_functional" and \
-                "all_gather" in func._overloadpacket.__name__:
-            raise FunctionalGather(f"{func} on the serving path")
-        super().record(func, out)
 
 
 def join(rank: int, port: int, world: int, shape) -> object:
@@ -158,6 +162,7 @@ def gather(rank: int, port: int, workdir: str) -> dict:
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.dist import sharding
+    from repro_torch.models import layers
 
     dm = join(rank, port, GATHER_WORLD, GATHER_SHAPE)
     out = {}
@@ -193,11 +198,39 @@ def gather(rank: int, port: int, workdir: str) -> dict:
         for name, fns in runs.items():
             for who, fn in zip(("raw", "dtensor"), fns):
                 leaf, t = placed()
-                got = fn(t)
-                w = weight[tuple(slice(0, n) for n in got.shape)]
-                (got * w).sum().backward()
+                with NoFunctionalGather(raises=False) as guard:
+                    got = fn(t)
+                    w = weight[tuple(slice(0, n) for n in got.shape)]
+                    (got * w).sum().backward()
                 out[f"{case}/{name}/{who}"] = got.detach().numpy()
                 out[f"{case}/{name}/{who}_grad"] = leaf.grad.numpy()
+                out[f"{case}/{name}/{who}_functional"] = np.asarray(
+                    guard.fired)
+    for case, (shape, x_codes, w_codes, cdim) in ROW_CASES.items():
+        g = torch.Generator().manual_seed(7 + len(case))
+        xg, wg = torch.randn(shape, generator=g), torch.randn((6, 5),
+                                                               generator=g)
+        weight = torch.randn(shape[:cdim] + (5,), generator=g)
+        for who in ("raw", "dtensor"):
+            leaves, ops = [], []
+            for glob, codes in ((xg, x_codes), (wg, w_codes)):
+                pl = [placement(c) for c in codes]
+                off, size = sharding.block_bounds(glob.shape, pl, dm)
+                leaf = glob[tuple(slice(o, o + n) for o, n in
+                                  zip(off, size))].clone().requires_grad_()
+                leaves.append(leaf)
+                ops.append(DTensor.from_local(leaf, dm, pl, run_check=False))
+            with NoFunctionalGather(raises=False) as guard:
+                if who == "raw":
+                    got = sharding.full(layers.row_parallel(*ops, cdim=cdim))
+                else:            # the whole operands' product
+                    x, w = (t.full_tensor() for t in ops)
+                    got = x.reshape(shape[:cdim] + (-1,)) @ w
+                (got * weight).sum().backward()
+            out[f"row/{case}/{who}"] = got.detach().numpy()
+            out[f"row/{case}/{who}_grad_x"] = leaves[0].grad.numpy()
+            out[f"row/{case}/{who}_grad_w"] = leaves[1].grad.numpy()
+            out[f"row/{case}/{who}_functional"] = np.asarray(guard.fired)
     cols = [torch.arange(6.0).reshape(2, 3) + 10 * rank,
             torch.arange(2.0).reshape(2, 1) - 10 * rank]
     for j, t in enumerate(sharding.gather_columns(cols, dm, (0, 1))):

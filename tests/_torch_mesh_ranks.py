@@ -10,9 +10,11 @@ a checkpoint of yi-9b's written by one process.  The rank places each
 state by ``state_specs`` (its blocks as ``{arch}/block/...``), runs one
 step of every case of ``_ref_train_mesh_dump.CASES`` from the placed
 initial state (metrics as ``{case}/metric/...``; rank 0 also the gathered
-state as ``{case}/after/...``; the ``yi`` step's collectives by kind,
-``collectives/count`` and ``collectives/bytes``, counted by
-:func:`step_collectives`), saves the placed state after the ``yi``
+state as ``{case}/after/...``), each under :func:`step_collectives`,
+whose guard records every functional all-gather of the step (forward,
+recomputation, backward and AdamW; ``{case}/functional_gathers``), and
+the ``yi`` step's collectives by kind as ``collectives/count`` and
+``collectives/bytes``; saves the placed state after the ``yi``
 step to ``WORKDIR/ckpt_mesh`` with every rank, restores ``ckpt_one`` and
 places it (``restored/block/...``), resumes ``ckpt_mesh`` elastically
 (``WORKDIR/scale_events.jsonl``), and runs the int8-compressed sum over
@@ -49,14 +51,17 @@ def tree_of(flat: dict, prefix: str) -> dict:
 
 
 def step_collectives(step, state, batch) -> tuple:
-    """``step(state, batch)`` under ``analysis.CollectiveCounter``: its
-    result, and the collectives it issued on this process as (count,
-    output bytes) arrays in the order of ``analysis.COLLECTIVES``."""
-    from repro_torch.roofline.analysis import COLLECTIVES, CollectiveCounter
-    with CollectiveCounter() as counter:
+    """``step(state, batch)`` under a recording
+    ``analysis.NoFunctionalGather`` (a ``CollectiveCounter``): its
+    result, the collectives it issued on this process as (count, output
+    bytes) arrays in the order of ``analysis.COLLECTIVES``, and how many
+    of them were DTensor's functional all-gathers."""
+    from repro_torch.roofline.analysis import COLLECTIVES, NoFunctionalGather
+    with NoFunctionalGather(raises=False) as counter:
         result = step(state, batch)
     return result, (np.array([counter.counts[k] for k in COLLECTIVES]),
-                    np.array([counter.nbytes[k] for k in COLLECTIVES]))
+                    np.array([counter.nbytes[k] for k in COLLECTIVES])), \
+        counter.fired
 
 
 def main(rank: int, port: int, workdir: str) -> None:
@@ -103,8 +108,9 @@ def main(rank: int, port: int, workdir: str) -> None:
                  ref.case_batch(pipeline, name, cfg.vocab_size).items()}
         batch = sharding.place(batch, sharding.batch_specs(batch, dm), dm)
         step = step_mod.make_train_step(cfg, opt.OptConfig(), mb)
-        (state, metrics), (count, nbytes) = step_collectives(
+        (state, metrics), (count, nbytes), fired = step_collectives(
             step, placed(arch), batch)
+        out[f"{name}/functional_gathers"] = np.asarray(fired)
         if name == "yi":
             out["collectives/count"], out["collectives/bytes"] = count, nbytes
         for k, v in metrics.items():

@@ -29,6 +29,8 @@ Bounds, stated where they are used:
   largest exact sum (error feedback keeps it unbiased);
 * checkpoints bit for bit both ways between four ranks and one process,
   and readable by the reference;
+* no functional all-gather in any case's step on any rank
+  (``roofline.analysis.NoFunctionalGather``, recording);
 * the collectives of the ``yi`` step that the dry run counts on a fake
   (2, 2) world (rank 0 of four, ``meta`` blocks) equal those rank 0 of
   the four processes issued, kind by kind and byte for byte.
@@ -200,6 +202,17 @@ def test_mesh_step_matches_one_process(run, case):
 
 
 @pytest.mark.parametrize("case", list(ref.CASES))
+def test_mesh_step_takes_no_functional_gather(run, case):
+    """Every move of a placed tensor in the step (forward, the
+    rematerialised recompute, backward and AdamW) goes by the raw
+    collectives of ``dist/sharding.py``: the guard of each rank recorded
+    no ``_c10d_functional`` all-gather, which a gloo group of CUDA
+    tensors does not survive on some torch versions."""
+    for r in range(WORLD):
+        assert int(run.ranks[r][f"{case}/functional_gathers"]) == 0, r
+
+
+@pytest.mark.parametrize("case", list(ref.CASES))
 def test_metrics_are_plain_scalars_equal_on_every_rank(run, case):
     want = _under(run.ranks[0], f"{case}/metric")
     assert sorted(want) == ["grad_norm", "loss", "lr"]
@@ -294,7 +307,7 @@ with fake_world(mesh):
     batch = {k: torch.from_numpy(v).to("meta") for k, v in
              ref.case_batch(pipeline, "yi", cfg.vocab_size).items()}
     batch = sharding.place(batch, sharding.batch_specs(batch, dm), dm)
-    _, (count, nbytes) = ranks.step_collectives(
+    _, (count, nbytes), _ = ranks.step_collectives(
         step_mod.make_train_step(cfg, opt.OptConfig(), 1), state, batch)
 print(json.dumps([count.tolist(), nbytes.tolist()]))
 """

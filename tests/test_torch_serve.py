@@ -237,7 +237,7 @@ sys.path.insert(0, "examples")
 import train_lm_torch, quickstart_torch, kv_store_torch
 import string_search_torch, serve_prefix_cache_torch
 sys.path.insert(0, "tests")
-import _torch_mesh_mp_ranks
+import _torch_mesh_mp_ranks, _torch_mesh_ranks
 assert not any(m.split(".")[0] in {_BLOCKED!r} for m in sys.modules)
 assert {{"repro_torch.serve.http_frontend",
          "repro_torch.launch.httpd", "repro_torch.models.moe",

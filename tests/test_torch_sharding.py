@@ -156,10 +156,14 @@ def gathered(tmp_path_factory):
 @pytest.mark.parametrize("name", ["full", "replicate_dim", "redistribute"])
 @pytest.mark.parametrize("case", ["shard0_shard1", "shard1_shard1",
                                   "shard2_replicate", "partial_shard0",
-                                  "shard2_partial", "partial_partial"])
+                                  "shard2_partial", "partial_partial",
+                                  "replicate_shard", "shard_to_shard",
+                                  "shard_outside", "partial_to_shard"])
 def test_raw_gather_matches_dtensor(gathered, case, name):
     """Values (exact but for the order of a partial sum's adds) and the
-    gradient of a weighted sum, on every process."""
+    gradient of a weighted sum, on every process; the raw path (new
+    splits by the raw cut, ``Shard(a)`` -> ``Shard(b)`` as gather then
+    cut) meets no functional all-gather in either pass."""
     for r, got in enumerate(gathered):
         key = f"{case}/{name}"
         np.testing.assert_allclose(got[f"{key}/raw"], got[f"{key}/dtensor"],
@@ -167,6 +171,25 @@ def test_raw_gather_matches_dtensor(gathered, case, name):
         np.testing.assert_array_equal(got[f"{key}/raw_grad"],
                                       got[f"{key}/dtensor_grad"],
                                       err_msg=(r, key))
+        assert int(got[f"{key}/raw_functional"]) == 0, (r, key)
+
+
+@pytest.mark.parametrize("case", ["rows_columns", "heads", "split_sequence",
+                                  "whole_x"])
+def test_row_parallel_matches_dtensor(gathered, case):
+    """``layers.row_parallel`` on each process's blocks (the attention
+    output's heads folded into the contraction; a split sequence takes
+    the weight whole) against the product of the operands DTensor made
+    whole: values and both operands' gradients within float32 rounding
+    (the partial sums add in another order), with no functional
+    all-gather."""
+    for r, got in enumerate(gathered):
+        key = f"row/{case}"
+        for part in ("", "_grad_x", "_grad_w"):
+            np.testing.assert_allclose(
+                got[f"{key}/raw{part}"], got[f"{key}/dtensor{part}"],
+                rtol=1e-5, atol=1e-5, err_msg=(r, key, part))
+        assert int(got[f"{key}/raw_functional"]) == 0, (r, key)
 
 
 def test_gather_columns_in_block_order(gathered):
