@@ -737,17 +737,94 @@ def serve_phase(np, torch) -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("stage times: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    memory = serve_step_memory(np, torch, "yi-9b", run.params, toks)
     one = {"records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
                         int(r.admitted), r.decoded.tolist()] for r in recs],
            "gaps": [g.tolist() for g in gaps.per_request(8)],
            "admissions": s.admissions, "seconds": run.seconds,
            "logits_full_last": b}
     return {"launches": launches, "batches": len(recs), "times": times,
-            "one_process": one,
+            "one_process": one, "step_memory": memory,
             "resume_check": {"max_abs_diff": d_res, "outside_tol": over(a, b),
                              "floor_max_abs_diff": d_floor,
                              "floor_outside_tol": over(rows, b),
                              "decoded_agree": agree}}
+
+
+#: Phase 9 (b)'s serving steps, run where phase 3 holds yi-9b: (ii) the
+#: full prefill of its last batch and (iii) one decode step on that cache
+SERVE_MEMORY_SHAPES = {"prefill": ("prefill_2x96", 96, 2, "prefill"),
+                       "decode": ("decode_2x96", 96, 2, "decode")}
+ALLOCATOR_BLOCK = 512              # the caching allocator's rounding
+
+
+def step_memory(torch, fn, args) -> dict:
+    """One step ``fn(*args)`` on the card: the bytes the allocator holds
+    for its arguments (each storage once, in whole 512-byte blocks), the
+    step's peak beyond what was allocated at its entry
+    (``max_memory_allocated() - memory_allocated()``, the peak reset just
+    before), and the same step run again under
+    ``jaxpr_cost.MemoryCounterMode``: the dry run's count on the card's
+    own tensors, which parts what the allocator adds (workspaces,
+    rounding) from what the card runs otherwise than ``meta``."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.roofline.jaxpr_cost import MemoryCounterMode
+
+    torch.cuda.synchronize()
+    entry = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - entry
+    del out
+    counter = MemoryCounterMode(args)
+    with counter:
+        out = fn(*args)
+    counted = counter.result(out)
+    del out
+    torch.cuda.synchronize()
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tree_leaves(args)
+                if isinstance(t, torch.Tensor) and t.is_cuda}
+    held = sum(-(-n // ALLOCATOR_BLOCK) * ALLOCATOR_BLOCK
+               for n in storages.values())
+    return {"entry_bytes": entry, "argument_bytes": held,
+            "step_peak_bytes": peak, "counted_on_card": counted}
+
+
+def serve_step_memory(np, torch, arch: str, params, toks,
+                      kinds=("prefill", "decode")) -> dict:
+    """``arch``'s full prefill of ``toks`` (2 x 96 tokens, every layer)
+    through ``serve/step.make_prefill_step`` and one decode step on its
+    cache through ``make_decode_step``, each the dry run's own step
+    (``launch.dryrun.build_cell``: the decode at the cache's last slot),
+    measured by :func:`step_memory` on ``params``, the phase's own: (ii)
+    and (iii) of phase 9 (b) for yi-9b, and its MoE prefill for
+    qwen3-moe-30b-a3b."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, mesh = get_arch(arch), make_host_mesh()
+    steps = {kind: dryrun.build_cell(
+        cfg, ShapeConfig(*SERVE_MEMORY_SHAPES[kind]), mesh)[0]
+        for kind in kinds}
+    tokens = torch.from_numpy(np.ascontiguousarray(toks, np.int32)).cuda()
+    batch = {"tokens": tokens}
+    out = {"prefill": step_memory(torch, steps["prefill"], (params, batch))}
+    if "decode" in kinds:
+        _, cache = steps["prefill"](params, batch)
+        last = tokens.new_tensor(SERVE_MEMORY_SHAPES["decode"][1] - 1)
+        out["decode"] = step_memory(torch, steps["decode"], (
+            params, cache, tokens[:, -1:].contiguous(), last))
+        del cache
+    for kind, m in out.items():
+        log(f"{arch} {kind} step on the card (2 x 96, {cfg.n_layers} "
+            f"layers): arguments {m['argument_bytes']} B, step peak "
+            f"{m['step_peak_bytes']} B over {m['entry_bytes']} B at entry; "
+            f"counted on the card: {m['counted_on_card']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -939,7 +1016,8 @@ def decode_read_bytes(cfg, params) -> int:
 
 def edge_phase(np, torch, smi: str, argv: list, dims: dict,
                check_tree, resume: bool = True,
-               replay_devices: tuple | None = None) -> dict:
+               replay_devices: tuple | None = None,
+               memory_kinds: tuple = ()) -> dict:
     """The ``--arch`` of ``argv`` at full width and depth (its fields
     must equal ``dims``; bf16, seeded random weights on the card, their
     tree checked by ``check_tree``) booted behind
@@ -956,7 +1034,9 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     per partition per search.  ``resume=False`` is the path of a recurrent
     model: the edge must report resume off, the index (``"block"``
     fingerprints, no slab store) must hit and no chunk may resume; the
-    replay and its times run the plain prefill and decode."""
+    replay and its times run the plain prefill and decode.
+    ``memory_kinds`` are the serving steps :func:`serve_step_memory`
+    then measures on the edge's parameters."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.xam_search import ops
     from repro_torch.launch import httpd
@@ -1153,7 +1233,10 @@ def edge_phase(np, torch, smi: str, argv: list, dims: dict,
     q2.close()
     log("edge stage times (" + smi + "): " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items() if isinstance(v, float)))
+    memory = (serve_step_memory(np, torch, cfg.name, params, toks,
+                                memory_kinds) if memory_kinds else None)
     return {"arch": cfg.name, "n_shards": idx.n_shards, "resume": resume,
+            "step_memory": memory,
             "launches": launches["xam_search_multiset"],
             "replay_partitions": n_parts,
             "replay_launches": replay_launches,
@@ -1550,7 +1633,7 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     """Phase 3c: free the card of gemma3-27b, then (a) the shards on the
     card, (b) the MoE block and 4 MoE layers card vs CPU, and (c)
     qwen3-moe-30b-a3b at full width and depth behind the edge with
-    ``--n-shards 4``."""
+    ``--n-shards 4``, and its MoE prefill's memory (phase 9 (b))."""
     left = free_card(torch)
     log(f"phase 3c: {left / 1e9:.4f} GB allocated after phase 3b "
         f"(before phase 3: {base_bytes / 1e9:.4f} GB)")
@@ -1569,7 +1652,8 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     layer = moe_layer_check(np, torch)
     free_card(torch)
     edge = edge_phase(np, torch, smi, MOE_EDGE_ARGV, QWEN_DIMS, qwen_tree,
-                      replay_devices=REPLAY_DEVICES)
+                      replay_devices=REPLAY_DEVICES,
+                      memory_kinds=("prefill",))
     free_card(torch)
     log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
     return {"shards": shards, "moe": layer, "edge": edge,
@@ -1997,18 +2081,17 @@ def zamba_train_check(np, torch) -> dict:
         f"{bound_s * 1e3:.1f} ms model-FLOP bound; losses "
         f"{[round(x, 4) for x in out['losses']]}")
     out.update(counted_step(torch, state))
+    out["step_memory"] = train_step_memory(np, torch, state)
     del state
     return out
 
 
-def counted_step(torch, state) -> dict:
-    """One more step of the run above (step 6, the launcher's optimizer
-    and data settings) under ``roofline.jaxpr_cost.step_flops``: the
-    FLOPs the card ran, beside ``roofline.analysis.model_flops`` for
-    2 x 512 tokens.  Phase 8 reports them."""
-    from repro_torch.configs import ShapeConfig, get_arch
+def launcher_step():
+    """The train step of ``ZAMBA_TRAIN_ARGV``'s launcher (its optimizer
+    settings) and the batch of the step after its last: ``(cfg, step,
+    batch)``, the batch as numpy arrays."""
+    from repro_torch.configs import get_arch
     from repro_torch.data import pipeline
-    from repro_torch.roofline import analysis, jaxpr_cost
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step
 
@@ -2020,6 +2103,34 @@ def counted_step(torch, state) -> dict:
     batch = pipeline.batch_at(pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=s, global_batch=b),
         int(argv["--steps"]))
+    return cfg, step_fn, batch
+
+
+def train_step_memory(np, torch, state) -> dict:
+    """(i) of phase 9 (b): one more step of the run above beside
+    :func:`counted_step`, its state as the arguments and its batch on
+    the card as the dry run's, measured by :func:`step_memory`."""
+    _, step_fn, batch = launcher_step()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in batch.items()}
+    m = step_memory(torch, step_fn, (state, batch))
+    log(f"zamba2-2.7b train step on the card (2 x 512): arguments "
+        f"{m['argument_bytes']} B, step peak {m['step_peak_bytes']} B over "
+        f"{m['entry_bytes']} B at entry; counted on the card: "
+        f"{m['counted_on_card']}")
+    return m
+
+
+def counted_step(torch, state) -> dict:
+    """One more step of the run above (step 6, the launcher's optimizer
+    and data settings) under ``roofline.jaxpr_cost.step_flops``: the
+    FLOPs the card ran, beside ``roofline.analysis.model_flops`` for
+    2 x 512 tokens.  Phase 8 reports them."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import analysis, jaxpr_cost
+
+    cfg, step_fn, batch = launcher_step()
+    b, s = batch["tokens"].shape
     t0 = time.perf_counter()
     flops = jaxpr_cost.step_flops(step_fn, state, batch)
     torch.cuda.synchronize()
@@ -4508,6 +4619,9 @@ def tooling_phase(np, torch, timer, smi: str, training: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 ZAMBA_TRAIN_SHAPE = ("train_512", 512, 2, "train")     # phase 3e's steps
+DRYRUN_WORKERS = 8                 # dry-run processes at once, a host core each
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_CHILD = "--dryrun-child"    # argv[1] of a dry-run process it spawns
 # argv of each example, and the kernels its run on the card must launch
 EXAMPLES = {
     "quickstart_torch": ([], ("xam_search",)),
@@ -4521,16 +4635,61 @@ _VARYING = r"\d+(\.\d+)? ?m?s\b( \((CUDA kernel on the card|plain version " \
            r"on the CPU)\))?"
 
 
-def dryrun_cells(torch, out_dir: str) -> list:
-    """(a) ``launch.dryrun.run_cell`` of every cell on the host mesh: one
-    line each; a runnable cell that fails to trace raises."""
+def dryrun_records(jobs: list, out_dir: str) -> dict:
+    """``launch.dryrun.run_cell`` of each (arch, shape, mesh) of ``jobs``
+    in DRYRUN_WORKERS processes of this script (``DRYRUN_CHILD``), the
+    jobs dealt out in turn, the long train and prefill cells first (each
+    trace is one host core's work): {job: its record}; a process that
+    fails raises, once every other has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = sorted(jobs, key=lambda job: job[1] not in ("train_4k",
+                                                       "prefill_32k"))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+
+    def one(share):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), DRYRUN_CHILD,
+             out_dir, *(":".join(job) for job in share)],
+            env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run of {share}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        list(pool.map(one, [jobs[k::DRYRUN_WORKERS]
+                            for k in range(DRYRUN_WORKERS)]))
+    out = {}
+    for arch, shape, mesh in jobs:
+        with open(os.path.join(out_dir, f"{mesh}__{arch}__{shape}.json")) as f:
+            out[arch, shape, mesh] = json.load(f)
+    return out
+
+
+def dryrun_child(argv: list) -> int:
+    """A process of :func:`dryrun_records`: ``out_dir`` and then
+    ``arch:shape:mesh`` jobs, each ``launch.dryrun.run_cell`` in turn."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    out_dir, jobs = argv[0], argv[1:]
+    for job in jobs:
+        dryrun.run_cell(*job.split(":"), out_dir)
+    return 0
+
+
+def dryrun_cells(torch, records: dict) -> list:
+    """(a) ``launch.dryrun.run_cell`` of every cell on the host mesh (the
+    runnable ones' ``records``): one line each; a runnable cell that
+    fails to trace has raised."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
 
     card = torch.cuda.get_device_properties(0).total_memory
     rows = []
     for cfg, shape, ok, why in configs.all_cells():
-        rec = dryrun.run_cell(cfg.name, shape.name, "host", out_dir)
+        rec = (records[cfg.name, shape.name, "host"] if ok else
+               dryrun.run_cell(cfg.name, shape.name, "host"))
         if not ok:
             log(f"dryrun {cfg.name} x {shape.name}: skipped ({why})")
             rows.append(rec)
@@ -4539,10 +4698,15 @@ def dryrun_cells(torch, out_dir: str) -> list:
         if rec["n_devices"] != 1 or mem["card_bytes"] != card or \
                 rec["machine"] != "h100-sxm" or not rec["flops"] > 0:
             raise AssertionError(f"dryrun record {rec}")
+        if mem["peak_exceeds_card"] != (mem["peak_bytes"] > card) or \
+                mem["temp_bytes"] is None:
+            raise AssertionError(f"dryrun memory record {mem}")
         log(f"dryrun {cfg.name} x {shape.name}: inputs "
-            f"{mem['analytic_input_bytes_per_device'] / 1e9:.2f} GB/device "
-            f"of the card's {card / 1e9:.2f} GB (exceeds: "
-            f"{mem['inputs_exceed_card']}), counted "
+            f"{mem['analytic_input_bytes_per_device'] / 1e9:.2f} GB/device, "
+            f"peak {mem['peak_bytes'] / 1e9:.2f} GB/device "
+            f"({mem['memory_method']}) of the card's {card / 1e9:.2f} GB "
+            f"(inputs exceed: {mem['inputs_exceed_card']}, peak exceeds: "
+            f"{mem['peak_exceeds_card']}), counted "
             f"{rec['flops'] / 1e12:.4f} TFLOPs, model_flops "
             f"{roof['model_flops'] / 1e12:.4f} T, compute "
             f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
@@ -4554,6 +4718,10 @@ def dryrun_cells(torch, out_dir: str) -> list:
                                          "trace_s", "hbm_bytes")}
                     | {"input_bytes": mem["analytic_input_bytes_per_device"],
                        "inputs_exceed_card": mem["inputs_exceed_card"],
+                       **{k: mem[k] for k in (
+                           "argument_bytes", "output_bytes", "alias_bytes",
+                           "temp_bytes", "peak_bytes", "memory_method",
+                           "peak_exceeds_card")},
                        "model_flops": roof["model_flops"],
                        "compute_s": roof["compute_s"],
                        "memory_s": roof["memory_s"],
@@ -4561,10 +4729,64 @@ def dryrun_cells(torch, out_dir: str) -> list:
     return rows
 
 
-def dryrun_vs_card(torch, zamba: dict) -> dict:
-    """(b) zamba2-2.7b's train step dry-run at phase 3e's shape: its FLOPs
-    equal phase 8's counted step on the card exactly, and its input bytes
-    do not exceed phase 3e's measured peak."""
+#: Phase 9 (b)'s bounds: a step's dry-run peak less its arguments within
+#: MEMORY_RTOL of the card's step peak or MEMORY_ATOL, whichever is larger,
+#: and its argument bytes within ARGUMENT_RTOL of the card's
+MEMORY_RTOL, MEMORY_ATOL, ARGUMENT_RTOL = 0.10, 128 << 20, 1e-3
+
+
+def memory_vs_card(name: str, count: dict, card: dict) -> dict:
+    """One step's dry-run memory (``launch.dryrun.count_step``'s
+    ``count``) against the card's (:func:`step_memory`): a line with both
+    and their ratios; raises where a bound of phase 9 (b) is missed."""
+    dry, method = count["memory"], count["memory_method"]
+    step = dry["peak_bytes"] - dry["argument_bytes"]
+    want = card["step_peak_bytes"]
+    on_card = card["counted_on_card"]
+    row = {"dry_argument_bytes": dry["argument_bytes"],
+           "dry_temp_bytes": dry["temp_bytes"],
+           "dry_peak_bytes": dry["peak_bytes"],
+           "dry_step_peak_bytes": step,
+           "memory_method": method,
+           "card_argument_bytes": card["argument_bytes"],
+           "card_step_peak_bytes": want,
+           "card_peak_bytes": card["argument_bytes"] + want,
+           "card_entry_bytes": card["entry_bytes"],
+           "counted_on_card": on_card,
+           "step_peak_ratio": step / want,
+           "argument_ratio": dry["argument_bytes"] / card["argument_bytes"],
+           "card_minus_counted_on_card_bytes": want - (
+               on_card["peak_bytes"] - on_card["argument_bytes"]),
+           "counted_on_card_minus_dry_bytes": (
+               on_card["peak_bytes"] - on_card["argument_bytes"]) - step}
+    log(f"dryrun vs card, {name}: dry run arguments "
+        f"{dry['argument_bytes']} B, temp {dry['temp_bytes']} B, peak "
+        f"{dry['peak_bytes']} B ({method}); card arguments "
+        f"{card['argument_bytes']} B, peak {row['card_peak_bytes']} B "
+        f"(step {want} B over {card['entry_bytes']} B at entry); ratios: "
+        f"step peak {row['step_peak_ratio']:.4f}, arguments "
+        f"{row['argument_ratio']:.6f}; allocator over the count on the "
+        f"card {row['card_minus_counted_on_card_bytes']} B, the count on "
+        f"the card over meta {row['counted_on_card_minus_dry_bytes']} B")
+    if abs(step - want) > max(MEMORY_RTOL * want, MEMORY_ATOL):
+        raise AssertionError(
+            f"{name}: dry-run step peak {step} B against the card's {want} B "
+            f"(bound {MEMORY_RTOL:.0%} or {MEMORY_ATOL} B)")
+    if abs(dry["argument_bytes"] - card["argument_bytes"]) > \
+            ARGUMENT_RTOL * card["argument_bytes"]:
+        raise AssertionError(
+            f"{name}: dry-run arguments {dry['argument_bytes']} B against "
+            f"the card's {card['argument_bytes']} B")
+    return row
+
+
+def dryrun_vs_card(torch, zamba: dict, serving: dict, moe: dict) -> dict:
+    """(b) Steps that ran on the card, dry-run at the same shapes on the
+    host mesh: zamba2-2.7b's train step at phase 3e's 2 x 512, whose
+    FLOPs equal phase 8's counted step exactly, and (i) its memory, (ii)
+    yi-9b's prefill and (iii) decode at phase 3's 2 x 96 and
+    qwen3-moe-30b-a3b's MoE prefill at phase 3c's against the card's
+    (:func:`memory_vs_card`)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
@@ -4586,10 +4808,21 @@ def dryrun_vs_card(torch, zamba: dict) -> dict:
     if inputs > peak:
         raise AssertionError(f"dry-run inputs {inputs} B exceed the measured "
                              f"peak {peak} B")
+    memory = {"zamba2-2.7b train": memory_vs_card(
+        "zamba2-2.7b train 2 x 512", count, zamba["step_memory"])}
+    for arch, kind, card in (("yi-9b", "prefill", serving["prefill"]),
+                             ("yi-9b", "decode", serving["decode"]),
+                             ("qwen3-moe-30b-a3b", "prefill",
+                              moe["prefill"])):
+        dry = dryrun.count_step(get_arch(arch),
+                                ShapeConfig(*SERVE_MEMORY_SHAPES[kind]), mesh)
+        memory[f"{arch} {kind}"] = memory_vs_card(f"{arch} {kind} 2 x 96",
+                                                 dry, card)
     return {"flops": count["flops"], "card_step_flops": zamba["step_flops"],
             "flops_method": count["flops_method"],
             "input_bytes": inputs, "peak_mem_bytes": peak,
-            "inputs_over_peak": inputs / peak, "trace_s": count["trace_s"]}
+            "inputs_over_peak": inputs / peak, "trace_s": count["trace_s"],
+            "memory": memory}
 
 
 def stable_lines(text: str) -> list:
@@ -4644,26 +4877,29 @@ PRODUCTION_DRYRUN = [(arch, shape, mesh) for mesh in ("single", "multi")
     ("yi-9b", "train_4k", "optsingle")]
 
 
-def production_dryrun(torch, out_dir: str) -> list:
+def production_dryrun(torch, records: dict) -> list:
     """(d) ``launch.dryrun.run_cell`` of PRODUCTION_DRYRUN under the
-    card's torch: each step placed over a fake world of 256 or 512 ranks
-    (meta blocks) and counted as rank 0 runs it; one line each with its
-    input bytes, FLOPs and collective bytes by kind a device and the
-    bottleneck on ``h100-sxm``."""
-    from repro_torch.launch import dryrun
+    card's torch (their ``records``): each step placed over a fake world
+    of 256 or 512 ranks (meta blocks) and counted as rank 0 runs it; one
+    line each with its input bytes, peak, FLOPs and collective bytes by
+    kind a device and the bottleneck on ``h100-sxm``."""
     from repro_torch.roofline.analysis import COLLECTIVES
 
     rows = []
     for arch, shape, mesh in PRODUCTION_DRYRUN:
-        rec = dryrun.run_cell(arch, shape, mesh, out_dir)
+        rec = records[arch, shape, mesh]
         n_dev = 512 if mesh.endswith("multi") else 256
         coll = rec["collectives"]
         if rec["n_devices"] != n_dev or rec["machine"] != "h100-sxm" or \
                 not rec["flops"] > 0 or not coll["total"] > 0:
             raise AssertionError(f"dryrun record {rec}")
         inputs = rec["memory"]["analytic_input_bytes_per_device"]
+        peak = rec["memory"]["peak_bytes"]
         log(f"dryrun {arch} x {shape} x {mesh}: inputs {inputs / 1e9:.3f} "
-            f"GB/device, {rec['flops'] / 1e12:.4f} TFLOPs/device "
+            f"GB/device, rank 0's peak {peak / 1e9:.3f} GB/device "
+            f"({rec['memory']['memory_method']}, exceeds the card: "
+            f"{rec['memory']['peak_exceeds_card']}), "
+            f"{rec['flops'] / 1e12:.4f} TFLOPs/device "
             f"({rec['flops_method']}), collectives/device "
             + ", ".join(f"{k} {coll[k] / 1e9:.4f} GB" for k in COLLECTIVES)
             + f", total {coll['total'] / 1e9:.4f} GB -> "
@@ -4674,6 +4910,7 @@ def production_dryrun(torch, out_dir: str) -> list:
             f"{rec['trace_s']:.1f} s")
         rows.append({"arch": arch, "shape": shape, "mesh": mesh,
                      "n_devices": n_dev, "input_bytes": inputs,
+                     "memory": rec["memory"],
                      "flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
                      "flops_method": rec["flops_method"],
                      "collectives": coll, "trace_s": rec["trace_s"],
@@ -4681,40 +4918,41 @@ def production_dryrun(torch, out_dir: str) -> list:
     return rows
 
 
-def launch_phase(torch, smi: str, training: dict) -> dict:
+def launch_phase(torch, smi: str, training: dict, serving: dict,
+                 moe: dict) -> dict:
     """Phase 9: (a) the dry run of every cell, (b) the dry run against the
-    card's counted step, (c) the four examples, (d) the production
-    meshes' dry run."""
+    steps measured on the card (the ``serving`` steps of phase 3, the
+    ``moe`` prefill of 3c, phase 3e's ``training``), (c) the four
+    examples, (d) the production meshes' dry run; (a)'s and (d)'s cells
+    in processes of their own, side by side."""
     import shutil
     import tempfile
 
-    from repro_torch.launch import dryrun
+    from repro_torch import configs
 
+    jobs = [(cfg.name, shape.name, "host")
+            for cfg, shape, ok, _ in configs.all_cells() if ok]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
         t0 = time.perf_counter()
-        cells = dryrun_cells(torch, tmp)
-        cells_s = time.perf_counter() - t0
+        records = dryrun_records(jobs + PRODUCTION_DRYRUN, tmp)
+        dryrun_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 9 (a): {sum(c['runnable'] for c in cells)} runnable cells "
-        f"dry-run in {cells_s:.1f} s")
-    vs_card = dryrun_vs_card(torch, training["zamba2_train"])
+    cells = dryrun_cells(torch, records)
+    runnable = [c for c in cells if c["runnable"]]
+    log(f"phase 9 (a), (d): {len(runnable)} runnable cells and "
+        f"{len(PRODUCTION_DRYRUN)} production cells dry-run in {dryrun_s:.1f} "
+        f"s, {DRYRUN_WORKERS} processes at a time; fit the card by their "
+        f"inputs {sum(not c['inputs_exceed_card'] for c in runnable)}, by "
+        f"their peak {sum(not c['peak_exceeds_card'] for c in runnable)}")
+    vs_card = dryrun_vs_card(torch, training["zamba2_train"], serving, moe)
     t0 = time.perf_counter()
     examples = examples_check(torch)
     log(f"phase 9 (c): four examples in {time.perf_counter() - t0:.1f} s")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_production_")
-    try:
-        t0 = time.perf_counter()
-        production = production_dryrun(torch, tmp)
-        production_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 9 (d): {len(production)} production cells in "
-        f"{production_s:.1f} s")
-    return {"cells": cells, "cells_s": cells_s, "zamba2_train": vs_card,
-            "examples": examples, "production": production,
-            "production_s": production_s, "card": smi}
+    production = production_dryrun(torch, records)
+    return {"cells": cells, "dryrun_s": dryrun_s, "zamba2_train": vs_card,
+            "examples": examples, "production": production, "card": smi}
 
 
 def main() -> int:
@@ -4731,6 +4969,8 @@ def main() -> int:
         return mesh_child(sys.argv[2:])
     if sys.argv[1:2] == [TORCHRUN_CHILD]:
         return torchrun_child(sys.argv[2:])
+    if sys.argv[1:2] == [DRYRUN_CHILD]:
+        return dryrun_child(sys.argv[2:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.apps.stringmatch import make_corpus
 
@@ -4782,7 +5022,8 @@ def main() -> int:
     tooling = tooling_phase(np, torch, timer, smi, training)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launch = launch_phase(torch, smi, training)
+    launch = launch_phase(torch, smi, training, served["step_memory"],
+                          moe["edge"]["step_memory"])
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     example_launches = {name: sum(e["launches"][name]
                                   for e in launch["examples"].values())

@@ -23,9 +23,9 @@ The meshes:
 * ``host`` (the default) is this host's cards
   (``launch/mesh.make_host_mesh``), one process: the step runs on plain
   ``meta`` tensors, its global FLOPs and bytes are counted
-  (``FlopCounterMode``, ``ByteCounterMode``) and divided by the device
-  count, as the reference divides its counted step's, and there are no
-  collectives.
+  (``jaxpr_cost.RankCostMode``: ``FlopCounterMode``'s formulas,
+  ``ByteCounterMode``'s bytes) and divided by the device count, as the
+  reference divides its counted step's, and there are no collectives.
 * ``single`` and ``multi`` are the reference's production meshes, 16 x
   16 ``("data", "model")`` and 2 x 16 x 16 ``("pod", "data",
   "model")``; ``optsingle`` and ``optmulti`` add its ``opt`` variants
@@ -44,17 +44,32 @@ The meshes:
 
 What else differs from the reference:
 
-* There are no compiler temp bytes (``compiled.memory_analysis()``): the
-  record's ``temp_bytes`` is null.  The analytic input bytes are a lower
-  bound on the peak memory, not the peak.
+* The memory analysis is counted, not compiled: the step's storages
+  are followed as they are allocated and die
+  (``jaxpr_cost.MemoryCounterMode``, in the same run as the FLOPs).
+  ``memory`` holds the reference's ``argument_bytes``, ``output_bytes``
+  and ``temp_bytes`` (the peak less the arguments and the outputs that
+  are not arguments updated in place), ``alias_bytes`` (those updated
+  in place, where the reference donates them) and ``peak_bytes``, per
+  device (rank 0's own on a production mesh; on a host mesh the global
+  count over the device count, as the FLOPs).  ``generated_code_bytes``
+  is null: there is no compiled program.  A cell fits the card when its
+  ``peak_bytes`` do (``peak_exceeds_card``); the analytic input bytes
+  are the lower bound they were before.  ``chip_smoke.py`` phase 9 (b)
+  holds the count to the H100's allocator; ``roofline/jaxpr_cost.py``
+  names what the card allocates beyond it.
 * FLOPs count what runs, so every loop trip is traced.  Where a
   full-depth trace would take more than :data:`TRACE_BUDGET_S`, the step
-  is counted at one and two layer groups (with the remainder blocks as
-  they are) and extrapolated linearly to the full depth: every group of
-  a config is the same computation, so this is exact
-  (``flops_method``: ``"traced"`` or ``"group_extrapolated"``); the
-  collective bytes extrapolate the same way, as the reference multiplies
-  a loop body's by its trip count.
+  is counted at two and three layer groups (with the remainder blocks as
+  they are) and extrapolated to the full depth: every group of a config
+  is the same computation, so the counts grow linearly and this is
+  exact (``flops_method`` and ``memory_method``: ``"traced"`` or
+  ``"group_extrapolated"``); the collective bytes extrapolate the same
+  way, as the reference multiplies a loop body's by its trip count.
+  The peak is extrapolated op by op (``jaxpr_cost.extrapolated_peak``):
+  where it falls moves with the depth, and a step's first and last
+  group keep other tensors alive than the groups between them, which
+  is why two groups and not one are the base.
 * A decode step runs at the cache's last position: the work does not
   depend on it (every slot is attended under a mask).
 """
@@ -84,8 +99,8 @@ from repro_torch.train import step as train_step_mod
 OUT_DIR = os.path.normpath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "build", "dryrun"))
 #: Seconds a full-depth trace may be expected to take before the count is
-#: extrapolated from one and two layer groups (the estimate runs up to a
-#: third low; the extrapolation is exact).
+#: extrapolated from two and three layer groups (the estimate runs up to
+#: a third low; the extrapolation is exact).
 TRACE_BUDGET_S = 1.0
 PRODUCTION_MESHES = ("single", "multi", "optsingle", "optmulti")
 
@@ -191,51 +206,68 @@ def at_groups(cfg: ArchConfig, n_groups: int) -> ArchConfig:
 
 def _counted(cfg: ArchConfig, shape: ShapeConfig, mesh, cache, opt=False,
              dmesh=None):
-    """(FLOPs, bytes, seconds, collective bytes) of one meta run of the
-    cell's step: without ``dmesh`` global counts on plain tensors, with it
-    rank 0's own on inputs placed over it."""
+    """(FLOPs, bytes, seconds, collective bytes, memory, memory timeline)
+    of one meta run of the cell's step: without ``dmesh`` global counts
+    on plain tensors, with it rank 0's own on inputs placed over it.  The
+    memory is ``jaxpr_cost.MemoryCounterMode``'s record of the same
+    run."""
     fn, args, in_specs, _ = build_cell(cfg, shape, mesh, opt)
     t0 = time.perf_counter()
-    if dmesh is None:
-        with cache:
-            flops, nbytes = jaxpr_cost.step_cost(fn, *args)
-        coll = {"total": 0}
-    else:
+    if dmesh is not None:
         args = tuple(sharding.place(a, s, dmesh)
                      for a, s in zip(args, in_specs))
-        with cache:
-            cost = jaxpr_cost.rank_cost(fn, *args)
-        flops, nbytes, coll = cost["flops"], cost["bytes"], cost["collectives"]
-    return flops, nbytes, time.perf_counter() - t0, coll
+    with cache:
+        cost = jaxpr_cost.rank_cost(fn, *args)
+    if dmesh is None:
+        cost["collectives"] = {"total": 0}
+    return (cost["flops"], cost["bytes"], time.perf_counter() - t0,
+            cost["collectives"], cost["memory"], cost["timeline"])
+
+
+def _grow(two, three, n_groups: int):
+    """The count at ``n_groups`` groups from the counts at two and
+    three."""
+    return two + (n_groups - 2) * (three - two)
 
 
 def count_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                opt: bool = False, dmesh=None) -> dict:
-    """The cell's FLOPs, bytes and collective bytes (global on the host
-    mesh, rank 0's over ``dmesh``): a full-depth trace where it is
-    expected within :data:`TRACE_BUDGET_S`, else the linear
-    extrapolation from one and two layer groups (``flops_method``)."""
+    """The cell's FLOPs, bytes, collective bytes and memory (global on
+    the host mesh, rank 0's over ``dmesh``): a full-depth trace where it
+    is expected within :data:`TRACE_BUDGET_S`, else the extrapolation
+    from two and three layer groups (``flops_method`` and
+    ``memory_method``): linear for the counts and the argument and
+    output bytes, ``jaxpr_cost.extrapolated_peak`` for the peak, whose
+    temporaries follow from it."""
     _, n_groups, _ = cfg.scan_groups()
     t0 = time.perf_counter()
     cache = jaxpr_cost.MetaShapeCache()
     method = "traced"
-    if n_groups > 2:
-        f1, b1, _, c1 = _counted(at_groups(cfg, 1), shape, mesh, cache, opt,
-                                 dmesh)
-        f2, b2, s2, c2 = _counted(at_groups(cfg, 2), shape, mesh, cache,
-                                  opt, dmesh)
-        # the two-group trace's time per group, fixed costs included: a
+    if n_groups > 3:
+        f2, b2, _, c2, m2, t2 = _counted(at_groups(cfg, 2), shape, mesh,
+                                         cache, opt, dmesh)
+        f3, b3, s3, c3, m3, t3 = _counted(at_groups(cfg, 3), shape, mesh,
+                                          cache, opt, dmesh)
+        # the three-group trace's time per group, fixed costs included: a
         # full trace takes at most this
-        if s2 * n_groups / 2 > TRACE_BUDGET_S:
+        if s3 * n_groups / 3 > TRACE_BUDGET_S:
             method = "group_extrapolated"
-            grow = lambda one, two: one + (n_groups - 1) * (two - one)
-            flops, nbytes = grow(f1, f2), grow(b1, b2)
-            coll = {k: grow(v, c2[k]) for k, v in c1.items()}
+            flops, nbytes = (_grow(f2, f3, n_groups),
+                             _grow(b2, b3, n_groups))
+            coll = {k: _grow(v, c3[k], n_groups) for k, v in c2.items()}
+            mem = {k: _grow(v, m3[k], n_groups) for k, v in m2.items()}
+            mem["peak_bytes"] = jaxpr_cost.extrapolated_peak(t2, t3,
+                                                             n_groups)
+            mem["temp_bytes"] = max(0, mem["peak_bytes"]
+                                    - mem["argument_bytes"]
+                                    - (mem["output_bytes"]
+                                       - mem["alias_bytes"]))
     if method == "traced":
-        flops, nbytes, _, coll = _counted(cfg, shape, mesh, cache, opt,
-                                          dmesh)
+        flops, nbytes, _, coll, mem, _ = _counted(cfg, shape, mesh, cache,
+                                                  opt, dmesh)
     return {"flops": flops, "hbm_bytes": nbytes, "collectives": coll,
-            "flops_method": method, "trace_s": time.perf_counter() - t0}
+            "memory": mem, "flops_method": method, "memory_method": method,
+            "trace_s": time.perf_counter() - t0}
 
 
 def _card_bytes():
@@ -274,6 +306,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
     _, args, in_specs, _ = build_cell(cfg, shape, mesh, opt)
     inputs = analytic_input_bytes_per_device(args, in_specs, mesh)
     card = _card_bytes()
+    memory = {k: v // per_device for k, v in count["memory"].items()}
     flops = count["flops"] / per_device
     hbm = count["hbm_bytes"] / per_device
     coll = count["collectives"]
@@ -286,13 +319,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
         "n_devices": n_dev,
         "trace_s": count["trace_s"],
         "memory": {
+            **memory,
+            "generated_code_bytes": None,
+            "generated_code_bytes_note": "no compiled program: the step "
+                                         "runs eagerly",
+            "memory_method": count["memory_method"],
             "analytic_input_bytes_per_device": inputs,
             "card_bytes": card,
             "inputs_exceed_card": None if card is None else inputs > card,
-            "temp_bytes": None,
-            "temp_bytes_note": "no compiled program whose temporaries "
-                               "could be read: the input bytes are a "
-                               "lower bound on the peak",
+            "peak_exceeds_card": (None if card is None
+                                  else memory["peak_bytes"] > card),
         },
         "flops": roof.flops,
         "flops_method": count["flops_method"],
@@ -306,7 +342,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "host",
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
     print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: inputs "
-          f"{inputs / 1e9:.2f} GB/device, flops/dev {roof.flops:.4e} "
+          f"{inputs / 1e9:.2f} GB/device, peak "
+          f"{memory['peak_bytes'] / 1e9:.2f} GB/device, flops/dev "
+          f"{roof.flops:.4e} "
           f"({count['flops_method']}, {count['trace_s']:.1f} s), coll "
           f"{coll['total']:.3e} B, bottleneck {roof.bottleneck}")
     return rec

@@ -56,6 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.models import layers, moe, ssm
 from repro_torch.pytree import tree_leaves, tree_map
+from repro_torch.roofline.jaxpr_cost import GROUP_RANGE
 
 DTYPE = layers.DTYPE
 
@@ -349,7 +350,9 @@ def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer, *,
     reads the bf16 carry).  ``remat`` runs each group under
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
     its scan body: a group keeps only its input for the backward pass and
-    runs again there.  The forward values are the same either way."""
+    runs again there.  The forward values are the same either way.  Each
+    group runs under the profiler range ``f"{GROUP_RANGE} {g}"``, which
+    the dry run's memory count labels its ops by."""
     group, n_groups, rem = cfg.scan_groups()
 
     def run(x, blocks):
@@ -360,13 +363,17 @@ def _run_stack(params: dict, cfg: ArchConfig, x: torch.Tensor, mixer, *,
                                   mixer(key, g, kind, p))
         return x
 
+    def run_group(x, blocks):
+        with torch.profiler.record_function(f"{GROUP_RANGE} {blocks[0][1]}"):
+            return run(x, blocks)
+
     for g in range(n_groups):
         blocks = [(f"b{i}", g, kind) for i, kind in enumerate(group)]
         if remat:
-            x = checkpoint(run, x, blocks, use_reentrant=False,
+            x = checkpoint(run_group, x, blocks, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = run(x, blocks)
+            x = run_group(x, blocks)
     x = run(x, [(f"rem{i}", None, kind) for i, kind in enumerate(rem)])
     return layers.rms_norm(x, params["final_ln"])
 

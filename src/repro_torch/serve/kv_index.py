@@ -206,6 +206,21 @@ class KVSlabStore:
             return sum(self._nbytes(s) for s in self._resident.values())
 
 
+def _install_column(bits, valid, fp_of, s, w, bitcol, fp):
+    """Install ONE CAM column on a partition's planes, in place (the
+    reference's ``_install_column``, the one-column install the batched
+    admission replaced, kept for the host-loop admission flow its
+    benchmark measures): ``bits[s, :, w] = bitcol`` (a ``(key_bits,)``
+    int8 bit row, or ``(key_bits // 8,)`` uint8 packed words),
+    ``valid[s, w] = 1`` and ``fp_of[s, w] = fp`` (the uint32
+    fingerprint's bit pattern, as the int32 plane stores it).  ``s`` and
+    ``w`` are ints or 0-d integer tensors.  Returns the three planes."""
+    bits[s, :, w] = torch.as_tensor(bitcol).to(bits.device, bits.dtype)
+    valid[s, w] = 1
+    fp_of[s, w] = int(np.asarray(fp, np.uint32).view(np.int32))
+    return bits, valid, fp_of
+
+
 def _admit_round(st: dict, ws: wear.WearState, wdyn: wear.WearDyn,
                  admit_after, lanes: slice, sets, fps, bitcols, cycles,
                  touches, outs: dict) -> wear.WearState:

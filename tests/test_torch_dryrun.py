@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import jax
 from jax.sharding import PartitionSpec as P
@@ -183,20 +184,29 @@ def _on_cpu(tree, vocab: int):
 @pytest.mark.parametrize("kind", sorted(SMALL))
 @pytest.mark.parametrize("arch", FIVE)
 def test_meta_counts_equal_cpu_counts(arch, kind):
-    """The dry run's meta count (shape cache on) equals the same step's
-    count on CPU tensors, FLOPs and bytes."""
+    """The dry run's meta count (shape cache on, one
+    ``jaxpr_cost.RankCostMode``) equals the same step's count on CPU
+    tensors under ``FlopCounterMode``, ``ByteCounterMode`` and
+    ``MemoryCounterMode``: FLOPs, bytes and the memory analysis's
+    argument, output, alias, temporary and peak bytes."""
     cfg, shape = configs.get_arch(arch).reduced(), SMALL[kind]
     mesh = Mesh(("data", "model"), (1, 1))
     meta = dryrun._counted(cfg, shape, mesh, jaxpr_cost.MetaShapeCache())
     fn, args, _, _ = dryrun.build_cell(cfg, shape, mesh)
-    flops, nbytes = jaxpr_cost.step_cost(fn, *_on_cpu(args, cfg.vocab_size))
-    assert meta[0] > 0
-    assert meta[:2] == (flops, nbytes)
+    args = _on_cpu(args, cfg.vocab_size)
+    memory = jaxpr_cost.MemoryCounterMode(args)
+    with FlopCounterMode(display=False) as flops, \
+            jaxpr_cost.ByteCounterMode() as nbytes, memory:
+        out = fn(*args)
+    assert meta[0] > 0 and meta[4]["peak_bytes"] > meta[4]["argument_bytes"]
+    assert meta[:2] == (flops.get_total_flops(), nbytes.total)
+    assert meta[4] == memory.result(out)
 
 
-# layers that give the reduced configs three groups or more and, for
-# gemma3 and zamba2, remainder blocks
-DEEP = {"gemma3-27b": 20, "zamba2-2.7b": 10}
+# layers that give the reduced configs four groups or more (the count
+# extrapolates from two and three) and, for gemma3 and zamba2, remainder
+# blocks
+DEEP = {"gemma3-27b": 26, "zamba2-2.7b": 13}
 
 
 def _deep(arch):
@@ -208,14 +218,38 @@ def _deep(arch):
 @pytest.mark.parametrize("arch", FIVE)
 def test_group_extrapolation_equals_full_trace(arch, kind, monkeypatch):
     cfg, shape = _deep(arch), SMALL[kind]
-    assert cfg.scan_groups()[1] >= 3 and (arch not in DEEP
+    assert cfg.scan_groups()[1] >= 4 and (arch not in DEEP
                                           or cfg.scan_groups()[2])
     mesh = Mesh(("data", "model"), (1, 1))
     monkeypatch.setattr(dryrun, "TRACE_BUDGET_S", 0.0)
     ext = dryrun.count_step(cfg, shape, mesh)
     full = dryrun._counted(cfg, shape, mesh, jaxpr_cost.MetaShapeCache())
-    assert ext["flops_method"] == "group_extrapolated"
+    assert ext["flops_method"] == ext["memory_method"] == \
+        "group_extrapolated"
     assert (ext["flops"], ext["hbm_bytes"]) == full[:2]
+    assert ext["memory"] == full[4]
+
+
+def _assert_memory_record(mem, want=None):
+    """A record's memory fields: the reference's keys (integers but the
+    code bytes, null with its reason), the aliases and the peak, the
+    analytic input bytes, and fits by inputs and by peak (null without a
+    card); ``want`` the count's figures."""
+    keys = ("argument_bytes", "output_bytes", "alias_bytes", "temp_bytes",
+            "peak_bytes")
+    assert all(type(mem[k]) is int for k in keys), mem
+    if want is not None:
+        assert {k: mem[k] for k in keys} == want
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert mem["temp_bytes"] == max(0, mem["peak_bytes"]
+                                    - mem["argument_bytes"]
+                                    - mem["output_bytes"]
+                                    + mem["alias_bytes"])
+    assert mem["generated_code_bytes"] is None
+    assert "no compiled program" in mem["generated_code_bytes_note"]
+    assert mem["memory_method"] in ("traced", "group_extrapolated")
+    assert "temp_bytes_note" not in mem
+    assert mem["inputs_exceed_card"] is mem["peak_exceeds_card"] is None
 
 
 def test_run_cell_writes_its_record(tmp_path, monkeypatch):
@@ -233,8 +267,10 @@ def test_run_cell_writes_its_record(tmp_path, monkeypatch):
     assert rec["memory"]["analytic_input_bytes_per_device"] == \
         dryrun.analytic_input_bytes_per_device(args, in_specs, mesh)
     assert rec["memory"]["card_bytes"] is None          # no card here
-    assert rec["memory"]["temp_bytes"] is None
-    assert rec["flops"] == dryrun.count_step(cfg, shape, mesh)["flops"]
+    count = dryrun.count_step(cfg, shape, mesh)
+    _assert_memory_record(rec["memory"], count["memory"])
+    assert rec["memory"]["memory_method"] == "traced"
+    assert rec["flops"] == count["flops"]
     assert rec["collectives"] == {"total": 0}
     assert rec["roofline"]["flops"] == rec["flops"]
     assert rec["roofline"]["bottleneck"] in ("compute", "memory")
@@ -288,13 +324,14 @@ def test_production_mesh_record(mesh_kind, arch, shape_name, tmp_path):
         cfg, configs.get_shape(shape_name), mesh, mesh_kind.startswith("opt"))
     assert rec["memory"]["analytic_input_bytes_per_device"] == \
         dryrun.analytic_input_bytes_per_device(args, in_specs, mesh)
-    assert rec["memory"]["temp_bytes"] is None
+    _assert_memory_record(rec["memory"])
     assert rec["flops"] > 0 and rec["hbm_bytes"] > 0
     coll = rec["collectives"]
     assert list(coll) == list(analysis.COLLECTIVES) + ["total"]
     assert coll["total"] == sum(coll[k] for k in analysis.COLLECTIVES) > 0
     assert rec["roofline"]["coll_bytes"] == coll["total"]
     assert f"x {mesh_kind}: inputs" in proc.stdout
+    assert "GB/device, peak" in proc.stdout
 
 
 def _spec_tuples(tree):

@@ -207,3 +207,60 @@ def test_index_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_kv.MonarchKVIndex()
+
+
+def _install_loop(idx, install, fps):
+    """The host-loop admission of ``benchmarks/kernels_bench.py``: per
+    fingerprint its set, the first free way (else way 0) and one
+    ``_install_column`` on the planes."""
+    for fp in fps:
+        s = int(idx._set_of(np.asarray([fp], np.uint32))[0])
+        free = np.nonzero(~idx.valid_np[s])[0]
+        w = int(free[0]) if free.size else 0
+        bitcol = idx._bitcols(np.asarray([fp], np.uint32))[0]
+        idx.bits, idx.valid, idx.fp_of = install(
+            idx.bits, idx.valid, idx.fp_of, s, w, bitcol, fp)
+        idx.valid_np[s, w] = True
+        idx.slot_of[int(fp)] = (s, w)
+
+
+@pytest.mark.parametrize("plane_format", ["int8", "packed8"])
+def test_install_column_parity(plane_format):
+    """``_install_column``: the same sequence of one-column installs (more
+    fingerprints than ways, so columns are overwritten) gives planes
+    equal bit for bit to the reference's."""
+    import jax.numpy as jnp
+    cfg = dict(n_sets=4, set_ways=4, key_bits=32,
+               plane_format=plane_format)
+    ji = j_kv.MonarchKVIndex(j_kv.KVIndexConfig(**cfg))
+    ti = t_kv.MonarchKVIndex(t_kv.KVIndexConfig(**cfg), device="cpu")
+    fps = np.random.default_rng(3).integers(1, 2 ** 32, 24,
+                                            dtype=np.uint32)
+
+    def j_install(bits, valid, fp_of, s, w, bitcol, fp):
+        return j_kv._install_column(bits, valid, fp_of, jnp.int32(s),
+                                    jnp.int32(w), jnp.asarray(bitcol),
+                                    jnp.uint32(fp))
+
+    _install_loop(ji, j_install, fps)
+    bits = ti.bits
+    _install_loop(ti, t_kv._install_column, fps)
+    assert ti.bits is bits                  # in place, as the reference
+    _assert_index_equal(ji, ti)             # donates its planes
+    assert ti.valid.sum() == ti.valid_np.sum() == 16
+
+
+def test_packed_install_column_is_fingerprint_bytes():
+    """Layout pin (the reference's test of the same name): with 32-bit
+    keys a packed column written by ``_install_column`` is the
+    fingerprint's little-endian bytes."""
+    idx = t_kv.MonarchKVIndex(t_kv.KVIndexConfig(
+        n_sets=8, admit_after_reads=0, plane_format="packed8"),
+        device="cpu")
+    fp = np.uint32(0xDEADBEEF)
+    _install_loop(idx, t_kv._install_column, [fp])
+    (s, w), = [idx.slot_of[int(fp)]]
+    np.testing.assert_array_equal(
+        idx.bits[s, :, w].numpy(),
+        np.frombuffer(np.uint32(fp).tobytes(), np.uint8))
+    assert idx.fp_of[s, w].item() == np.uint32(fp).view(np.int32)
