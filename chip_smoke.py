@@ -60,7 +60,7 @@ code 1) on failure:
    width (128 experts, top-8), card against CPU at S = 96 (capacity 7,
    entries dropped) and S = 1: expert ids equal where the 8th/9th router
    gap exceeds 1e-6, outputs within rtol 1e-2/atol 5e-2 but for at most
-   0.1% (none past 0.5: bf16 sums that cancel); then 4 MoE layers at
+   0.1% (none past 0.5: bf16 sums that cancel); then 2 MoE layers at
    full width, prefill 2 x 96 and 8 greedy decode steps, tokens equal
    under the margin rule wherever the card routed the row's tokens as the
    CPU did (bf16 noise flips routing in later layers).  (c)
@@ -76,7 +76,7 @@ code 1) on failure:
    block at zamba2-2.7b's (80 heads of 64, N 64), as a layer group runs
    them: S = 96 with its final state and conv tail, then 8 decode steps
    from them, card against CPU, outputs, float32 states and conv taps
-   within rtol 1e-2/atol 5e-2.  (b) falcon-mamba at full width and 4
+   within rtol 1e-2/atol 5e-2.  (b) falcon-mamba at full width and 2
    layers and zamba2 at full width and one group (6 layers, one shared
    attention call): prefill 2 x 96 tokens and 8 greedy decode steps,
    card against CPU (logits within rtol/atol, tokens under the margin
@@ -95,7 +95,7 @@ code 1) on failure:
    train step (``train.step.loss_and_grads``) at full width, B x S = 2
    x 64, card against CPU from the same float32 masters: yi-9b at 2
    layers with 1 and 2 microbatches, zamba2-2.7b at one group (6 layers,
-   one shared-block call), falcon-mamba-7b at 2 layers (the selective
+   one shared-block call), falcon-mamba-7b at 1 layer (the selective
    scan's backward); the loss within 1e-3, the gradients' global norm
    within 2e-2 and every leaf's gradient within 5e-2 relative L2; then
    ``adamw_update`` on both devices with the CPU's gradients, params, m
@@ -108,8 +108,8 @@ code 1) on failure:
    optimizer step at 6; median step time after the first, tokens/s,
    peak memory and the share of the 6 N tokens model-FLOP bound at the
    dense bf16 peak; then one more step with its FLOPs counted (phase 8).  (d) ``examples/train_lm_torch.py --preset 100m``:
-   60 steps of 4 x 256 with a checkpoint at step 30, the loss DOWN, and
-   a rerun to 64 steps that restores step 60.  Temporary checkpoint
+   16 steps of 4 x 256 with a checkpoint at step 8, the loss DOWN, and
+   a rerun to 18 steps that restores step 16.  Temporary checkpoint
    directories are removed.  The training path launches none of the
    four kernels.
 3f. Training over a ``torch.distributed`` mesh.  Phase 3e's state is
@@ -138,10 +138,10 @@ code 1) on failure:
    steps' seconds and its peak memory.  (c) The model split over the two
    ranks, on ``(1, 2)``, in (b)'s pair of processes: (b)'s configuration
    held to the same one-process step (not run again), then yi-9b at full
-   width and 2 layers (its vocabulary split over ``model`` in the
+   width and 1 layer (its vocabulary split over ``model`` in the
    embedding and unembedding, its 4 KV heads over 2) held to its own
    one-process step, which rank 0 runs first; (b)'s bounds and records
-   (zamba2-2.7b's checkpoint too; yi-9b's 10.4 GB state is not saved,
+   (zamba2-2.7b's checkpoint too; yi-9b's 8.4 GB state is not saved,
    for the script's time), and both steps of each under a collective
    counter that refuses, by name and before it runs, a functional
    all-gather (``roofline.analysis.NoFunctionalGather``): every gather
@@ -154,15 +154,16 @@ code 1) on failure:
    each rank this script (``--torchrun-child``) calling the launcher;
    (a), (c) and (d) run in turn in one such launch (``SERVE_PARTS``).
    (a) ``launch/serve.serve`` with phase 3's arguments and ``--mesh
-   host``: yi-9b at full width and depth placed over ``(2, 1)``, an index
-   replica a rank; both ranks' records equal; chunks, hits, resumed
-   chunks and admissions equal phase 3's one-process run; greedy tokens
-   under the margin rule with phase 3's top-2 gaps; a full prefill of the
-   last batch within phase 3's 48-layer ceilings of the one-process
-   logits; each rank's multi-set launches equal its searches; each
-   rank's collectives (output bytes), local parameter bytes and peak.
+   host``: yi-9b at full width and 8 layers placed over ``(2, 1)``, an
+   index replica a rank; both ranks' records equal; chunks, hits,
+   resumed chunks and admissions equal a one-process run of the same
+   config in this process; greedy tokens under the margin rule with its
+   top-2 gaps; a full prefill of the last batch within phase 3's deep
+   ceilings of the one-process logits; each rank's multi-set launches
+   equal its searches; each rank's collectives (output bytes), local
+   parameter bytes and peak.
    (b) ``launch/httpd.main --mesh host`` with qwen3-moe-30b-a3b at full
-   width and 4 of its 48 layers, ``--n-shards 4``: 8 requests of two
+   width and 2 of its 48 layers, ``--n-shards 4``: 8 requests of two
    96-token rows (sharing a 48-token prefix) first through the edge's
    request loop in this process, each request's rows served alone at
    B = 1 with the batch's lookups, resume run and admissions (its top-2
@@ -215,9 +216,10 @@ code 1) on failure:
    reproduced exactly.  Per family: wall time, µs per step replayed and
    eager (a 64-step window), kernels per step in the captured graph; and
    the peak device memory.  Then the first Fig. 9 family whose lanes
-   split in two runs again through ``simulate_grid(devices=("cuda:0",
-   "cuda:0"))`` (two blocks of lanes, one run each): every result and
-   final state equal to the sweep's.  The path launches none of the four kernels.
+   split in two runs on the first 5,000 requests of each trace through
+   ``simulate_grid(devices=("cuda:0", "cuda:0"))`` (two blocks of lanes,
+   one run each) and unsharded: every result and final state equal.
+   The path launches none of the four kernels.
 8. The tooling.  (a) ``roofline.analysis.current_machine()`` must be
    ``h100-sxm`` on the card (the bounds above read that profile).  (b)
    ``kernels.autotune.autotune`` sweeps the multi-set search's query-block
@@ -228,7 +230,15 @@ code 1) on failure:
    planted hits, equal the cold width's and the plain version's bit for
    bit, and each candidate's cold-L2 device time (``graph_ms``) stands
    beside the sweep's; the sweep's launches are ``launches_autotune``,
-   apart from the main path's.  (c) One lookup
+   apart from the main path's.  The same sweep times the flat search's
+   ``(block_q, block_c)`` pairs (block_q 8 to 128 by block_c 128 to 1024,
+   and the cold pair ``flat_geometry`` of each shape) at the Fig. 6
+   search, 64 x 64 x 512 and the dedup batch; at those shapes and the
+   ragged edge case (``edge_cases.FLAT_RAGGED_SHAPE``), int8 and packed8,
+   every pair's bitmap equals the plain version's and a pair outside the
+   launcher's range raises; at the Fig. 6 and dedup shapes the cold, the
+   swept and the committed pair (the one phases 4 and 6 launch) are
+   timed in turns (cold L2).  (c) One lookup
    batch per format and bucket through a ``MonarchKVIndex`` on the card
    under the cold and the swept cache: ways, hits and counters equal.
    (d) ``bench.time_callable`` of an 8192^2 bf16 matmul is at least 0.9
@@ -364,6 +374,14 @@ class CudaTimer:
         t_flush = statistics.median(self._events_ms(flush_only.replay)
                                     for _ in range(5))
         return max(t_both - t_flush, 0.0) / reps
+
+
+def lap(parts: dict, name: str, t0: float) -> float:
+    """Record the seconds since ``t0`` as ``parts[name]``; returns now, the
+    next part's start."""
+    now = time.perf_counter()
+    parts[name] = round(now - t0, 2)
+    return now
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -641,8 +659,7 @@ def serve_phase(np, torch) -> dict:
     args = serve.parse_args(SERVE_ARGV)
     ops.LAUNCH_COUNT = 0
     ops.ADMIT_LAUNCH_COUNT = 0
-    gaps = RecordedGaps(np)                  # phase 3g's margin reference
-    run = serve.serve(args, on_logits=gaps.record)
+    run = serve.serve(args)
     launches = ops.LAUNCH_COUNT
     admit_launches = ops.ADMIT_LAUNCH_COUNT
     cfg, idx, eng, recs = run.cfg, run.index, run.engine, run.records
@@ -738,13 +755,8 @@ def serve_phase(np, torch) -> dict:
     }
     log("stage times: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
     memory = serve_step_memory(np, torch, "yi-9b", run.params, toks)
-    one = {"records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
-                        int(r.admitted), r.decoded.tolist()] for r in recs],
-           "gaps": [g.tolist() for g in gaps.per_request(8)],
-           "admissions": s.admissions, "seconds": run.seconds,
-           "logits_full_last": b}
     return {"launches": launches, "batches": len(recs), "times": times,
-            "one_process": one, "step_memory": memory,
+            "step_memory": memory,
             "resume_check": {"max_abs_diff": d_res, "outside_tol": over(a, b),
                              "floor_max_abs_diff": d_floor,
                              "floor_outside_tol": over(rows, b),
@@ -1292,7 +1304,7 @@ ROUTE_MARGIN = 1e-6                # k-th vs (k+1)-th router probability
 # |diff| 0.25; the card put 0.038% outside, max 0.25.
 MOE_MAX_ABS, MOE_MAX_OUTSIDE = 0.5, 1e-3
 MOE_PREFILL = 96                   # capacity 7 at top-8 of 128: drops
-MOE_LAYERS = 4
+MOE_LAYERS = 2                     # 4 until the script needed its time
 MOE_DECODE = 8
 QWEN_DIMS = {"n_layers": 48, "d_model": 2048, "n_heads": 32,
              "n_kv_heads": 4, "d_head": 128, "n_experts": 128, "top_k": 8,
@@ -1496,7 +1508,7 @@ def moe_layer_check(np, torch) -> dict:
     where the routing is decided past ``ROUTE_MARGIN``; where no near tie
     can reach them, outputs within RTOL/ATOL but for at most
     ``MOE_MAX_OUTSIDE`` of them, none further than ``MOE_MAX_ABS``; at
-    S = 96 (capacity 7: drops happen) and at decode, S = 1 (capacity 1).  Then 4 layers at
+    S = 96 (capacity 7: drops happen) and at decode, S = 1 (capacity 1).  Then MOE_LAYERS layers at
     full width: prefill 2 x 96 tokens and 8 greedy decode steps, card
     against CPU, tokens equal under the margin rule."""
     from repro_torch.configs import get_arch
@@ -1631,7 +1643,7 @@ def qwen_tree(params) -> None:
 
 def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     """Phase 3c: free the card of gemma3-27b, then (a) the shards on the
-    card, (b) the MoE block and 4 MoE layers card vs CPU, and (c)
+    card, (b) the MoE block and MOE_LAYERS MoE layers card vs CPU, and (c)
     qwen3-moe-30b-a3b at full width and depth behind the edge with
     ``--n-shards 4``, and its MoE prefill's memory (phase 9 (b))."""
     left = free_card(torch)
@@ -1640,7 +1652,8 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     if left > base_bytes + (64 << 20):
         raise AssertionError(f"phase 3b left {left - base_bytes} bytes on "
                              "the card")
-    t0 = time.perf_counter()
+    t0 = t = time.perf_counter()
+    parts = {}
     zero_counts()
     shards = shard_check(np, torch)
     counted = read_counts()["xam_search_multiset"]
@@ -1649,15 +1662,18 @@ def moe_phase(np, torch, smi: str, base_bytes: int) -> dict:
     if counted != (shards["launches"] + shards["cpu_plain_runs"]
                    + shards["timing_launches"]):
         raise AssertionError(f"multi-set count {counted} != {shards}")
+    t = lap(parts, "shards", t)
     layer = moe_layer_check(np, torch)
     free_card(torch)
+    t = lap(parts, "moe_layers", t)
     edge = edge_phase(np, torch, smi, MOE_EDGE_ARGV, QWEN_DIMS, qwen_tree,
                       replay_devices=REPLAY_DEVICES,
                       memory_kinds=("prefill",))
     free_card(torch)
-    log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
+    lap(parts, "edge", t)
+    log(f"phase 3c: {time.perf_counter() - t0:.1f} s ({parts})")
     return {"shards": shards, "moe": layer, "edge": edge,
-            "allocated_after_phase3b_bytes": left}
+            "parts_s": parts, "allocated_after_phase3b_bytes": left}
 
 
 # ---------------------------------------------------------------------------
@@ -1673,8 +1689,9 @@ ZAMBA_DIMS = {"n_layers": 54, "d_model": 2560, "n_heads": 32,
               "n_kv_heads": 32, "d_head": 80, "d_ff": 10240,
               "ssm_state": 64, "ssm_head_dim": 64, "shared_attn_every": 6,
               "vocab_size": 32000}
-#: layers of the card-vs-CPU stacks: falcon-mamba 4, zamba2 one group
-SSM_FEW_LAYERS = {"falcon-mamba-7b": 4, "zamba2-2.7b": 6}
+#: layers of the card-vs-CPU stacks: falcon-mamba 2 (4 until the script
+#: needed its time), zamba2 one group
+SSM_FEW_LAYERS = {"falcon-mamba-7b": 2, "zamba2-2.7b": 6}
 #: the reference's own decode-vs-forward bound for the recurrent archs
 #: (tests/test_models.py::test_decode_matches_forward)
 HANDOFF_RTOL, HANDOFF_ATOL, HANDOFF_AGREE = 0.2, 0.35, 0.7
@@ -1859,10 +1876,15 @@ def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
     if left > base_bytes + (64 << 20):
         raise AssertionError(f"phase 3c left {left - base_bytes} bytes on "
                              "the card")
-    t0 = time.perf_counter()
+    t0 = t = time.perf_counter()
+    parts = {}
     blocks = ssm_block_check(np, torch)
     free_card(torch)
-    stacks = [ssm_layers_check(np, torch, arch) for arch in SSM_FEW_LAYERS]
+    t = lap(parts, "blocks", t)
+    stacks = []
+    for arch in SSM_FEW_LAYERS:
+        stacks.append(ssm_layers_check(np, torch, arch))
+        t = lap(parts, f"stack {arch}", t)
     free_card(torch)
     edges = []
     for arch, dims, tree in (("falcon-mamba-7b", FALCON_DIMS, falcon_tree),
@@ -1870,10 +1892,12 @@ def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
         edges.append(edge_phase(np, torch, smi, edge_argv(arch), dims, tree,
                                 resume=False))
         free_card(torch)
+        t = lap(parts, f"edge {arch}", t)
     wall = time.perf_counter() - t0
-    log(f"phase 3d: {wall:.1f} s")
+    log(f"phase 3d: {wall:.1f} s ({parts})")
     return {"blocks": blocks, "stacks": stacks, "edges": edges,
-            "wall_s": wall, "allocated_after_phase3c_bytes": left}
+            "wall_s": wall, "parts_s": parts,
+            "allocated_after_phase3c_bytes": left}
 
 
 # ---------------------------------------------------------------------------
@@ -1882,9 +1906,10 @@ def ssm_phase(np, torch, smi: str, base_bytes: int) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 2, 64
-#: (arch, layers, microbatches) of the card-vs-CPU train steps
-TRAIN_STEPS = (("yi-9b", 2, 1), ("yi-9b", 2, 2), ("zamba2-2.7b", 6, 1),
-               ("falcon-mamba-7b", 2, 1))
+#: (arch, layers, microbatch counts) of the card-vs-CPU train steps; the
+#: counts of one arch share its masters, their copy and one AdamW check
+TRAIN_STEPS = (("yi-9b", 2, (1, 2)), ("zamba2-2.7b", 6, (1,)),
+               ("falcon-mamba-7b", 1, (1,)))
 #: card against CPU, the same masters and batch: the loss within
 #: TRAIN_LOSS_RTOL, the gradients' global norm within TRAIN_GNORM_RTOL, and
 #: every leaf's gradient within TRAIN_GRAD_RTOL relative L2 error — the
@@ -1899,73 +1924,106 @@ ADAM_RTOL = 1e-6
 RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6
 ZAMBA_TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--steps", "6", "--batch", "2",
                     "--seq", "512", "--device", "cuda"]
-EXAMPLE_STEPS, EXAMPLE_CKPT_AT, EXAMPLE_RERUN_STEPS = 60, 30, 64
+#: (d): 60, 30 and 64 until the script needed its time
+EXAMPLE_STEPS, EXAMPLE_CKPT_AT, EXAMPLE_RERUN_STEPS = 16, 8, 18
 
 
-def rel_l2(np, got, want) -> float:
-    a = got.detach().double().cpu().numpy()
-    b = want.detach().double().cpu().numpy()
-    if not np.isfinite(a).all():
+def rel_l2(torch, got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` in float64, on the
+    card (``want`` moved there)."""
+    a = got.detach().double()
+    b = want.detach().to(a.device).double()
+    if not bool(torch.isfinite(a).all()):
         raise AssertionError("non-finite values on the card")
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
 
 
 def train_step_check(np, torch, arch: str, layers: int,
-                     microbatches: int) -> dict:
+                     microbatches: tuple) -> list:
     """(a) One train step at full width and ``layers`` layers, B x S =
-    2 x 64: ``step.loss_and_grads`` on the card and on the CPU from the
-    same float32 masters (drawn on the card, copied), loss, global norm
-    and each leaf's gradient held to their bounds; then
-    ``optimizer.adamw_update`` on both devices with the CPU's gradients,
-    params, m and v held to ADAM_RTOL."""
+    2 x 64, at each count of ``microbatches``: ``step.loss_and_grads`` on
+    the card and on the CPU from the same float32 masters (drawn on the
+    card, copied once; the CPU's zero moments made there by
+    ``init_opt_state``), loss, global norm and each leaf's gradient held
+    to their bounds; then ``optimizer.adamw_update`` on both devices with
+    the CPU's gradients of the first count, params, m and v held to
+    ADAM_RTOL.  The comparisons run on the card in float64.  One record a
+    count, with the seconds of each stage."""
     from repro_torch.configs import get_arch
     from repro_torch.data import pipeline
     from repro_torch.pytree import tree_map, tree_paths
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step
 
+    clock = {}
+
+    def tick(name, t0):
+        """Add the seconds since ``t0`` to ``clock[name]``, the card's work
+        included; returns now."""
+        torch.cuda.synchronize()
+        clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
+
+    t = time.perf_counter()
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     state = step.init_state(11, cfg, device="cuda")
-    state_cpu = tree_map(lambda a: a.cpu(), state)
+    t = tick("init_s", t)
+    params_cpu = tree_map(lambda a: a.cpu(), state["params"])
+    state_cpu = {"params": params_cpu, "opt": opt.init_opt_state(params_cpu)}
+    t = tick("copy_s", t)
     batch = pipeline.batch_at(pipeline.DataConfig(
         cfg.vocab_size, TRAIN_S, TRAIN_B, seed=12), 0)
-    t0 = time.perf_counter()
-    loss, grads = step.loss_and_grads(cfg, state["params"], batch,
-                                      microbatches)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    loss_c, grads_c = step.loss_and_grads(cfg, state_cpu["params"], batch,
-                                          microbatches)
-    cpu_s = time.perf_counter() - t0
-    gn, gn_c = float(opt.global_norm(grads)), float(opt.global_norm(grads_c))
-    loss, loss_c = float(loss), float(loss_c)
-    errs = {"/".join(p): rel_l2(np, g, gc) for (p, g), (_, gc) in
-            zip(tree_paths(grads), tree_paths(grads_c))}
-    worst = max(errs, key=errs.get)
-    if not (np.isfinite(loss) and np.isfinite(gn)) or \
-            abs(loss - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c) or \
-            abs(gn - gn_c) > TRAIN_GNORM_RTOL * gn_c or \
-            errs[worst] > TRAIN_GRAD_RTOL:
-        raise AssertionError(
-            f"{arch} x{layers} mb{microbatches} train step, card vs CPU: "
-            f"loss {loss} vs {loss_c}, grad norm {gn} vs {gn_c}, worst "
-            f"leaf {worst} {errs[worst]}")
+    records, grads_first = [], None
+    for mb in microbatches:
+        t = time.perf_counter()
+        loss, grads = step.loss_and_grads(cfg, state["params"], batch, mb)
+        t = tick(f"card_mb{mb}_s", t)
+        loss_c, grads_c = step.loss_and_grads(cfg, state_cpu["params"],
+                                              batch, mb)
+        t = tick(f"cpu_mb{mb}_s", t)
+        gn = float(opt.global_norm(grads))
+        gn_c = float(opt.global_norm(grads_c))
+        loss, loss_c = float(loss), float(loss_c)
+        errs = {"/".join(p): rel_l2(torch, g, gc) for (p, g), (_, gc) in
+                zip(tree_paths(grads), tree_paths(grads_c))}
+        t = tick("compare_s", t)
+        worst = max(errs, key=errs.get)
+        if not (np.isfinite(loss) and np.isfinite(gn)) or \
+                abs(loss - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c) or \
+                abs(gn - gn_c) > TRAIN_GNORM_RTOL * gn_c or \
+                errs[worst] > TRAIN_GRAD_RTOL:
+            raise AssertionError(
+                f"{arch} x{layers} mb{mb} train step, card vs CPU: loss "
+                f"{loss} vs {loss_c}, grad norm {gn} vs {gn_c}, worst leaf "
+                f"{worst} {errs[worst]}")
+        del grads
+        grads_first = grads_c if grads_first is None else grads_first
+        del grads_c
+        records.append({
+            "arch": arch, "layers": layers, "microbatches": mb,
+            "loss": loss, "loss_cpu": loss_c, "grad_norm": gn,
+            "grad_norm_cpu": gn_c, "worst_leaf": worst,
+            "worst_leaf_rel_l2": errs[worst],
+            "median_leaf_rel_l2": float(np.median(list(errs.values())))})
     ocfg = opt.OptConfig()
-    grads_on_card = tree_map(lambda g: g.cuda(), grads_c)
-    del grads
+    t = time.perf_counter()
+    grads_on_card = tree_map(lambda g: g.cuda(), grads_first)
     _, state["opt"], _ = opt.adamw_update(ocfg, state["params"],
                                           state["opt"], grads_on_card)
+    t = tick("adam_card_s", t)
     _, state_cpu["opt"], _ = opt.adamw_update(
-        ocfg, state_cpu["params"], state_cpu["opt"], grads_c)
+        ocfg, state_cpu["params"], state_cpu["opt"], grads_first)
+    t = tick("adam_cpu_s", t)
     adam_err = 0.0
     for name in ("params", "m", "v"):
         tree = state["params"] if name == "params" else state["opt"][name]
         tree_c = (state_cpu["params"] if name == "params"
                   else state_cpu["opt"][name])
         for (p, a), (_, b) in zip(tree_paths(tree), tree_paths(tree_c)):
-            err = float((a.cpu() - b).abs().max()) / max(
-                float(b.abs().max()), 1e-30)
+            b = b.to(a.device)
+            err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
             if err > ADAM_RTOL:
                 raise AssertionError(
                     f"{arch} adamw_update card vs CPU, {name}/"
@@ -1973,18 +2031,20 @@ def train_step_check(np, torch, arch: str, layers: int,
             adam_err = max(adam_err, err)
     if int(state["opt"]["step"]) != 1:
         raise AssertionError("the optimizer step did not advance")
-    log(f"{arch} at full width, {layers} layers, microbatches "
-        f"{microbatches}, {TRAIN_B} x {TRAIN_S}: loss {loss:.6f} (CPU "
-        f"{loss_c:.6f}), grad norm {gn:.6f} (CPU {gn_c:.6f}), worst leaf "
-        f"{worst} rel L2 {errs[worst]:.6f}; adamw card vs CPU max rel "
-        f"{adam_err:.3g}; card {card_s:.2f} s, CPU {cpu_s:.2f} s")
-    del state, state_cpu, grads_c, grads_on_card
-    return {"arch": arch, "layers": layers, "microbatches": microbatches,
-            "loss": loss, "loss_cpu": loss_c, "grad_norm": gn,
-            "grad_norm_cpu": gn_c, "worst_leaf": worst,
-            "worst_leaf_rel_l2": errs[worst],
-            "median_leaf_rel_l2": float(np.median(list(errs.values()))),
-            "adam_max_rel": adam_err, "card_s": card_s, "cpu_s": cpu_s}
+    tick("adam_compare_s", t)
+    for rec in records:
+        rec.update(adam_max_rel=adam_err, seconds=clock)
+        log(f"{arch} at full width, {layers} layers, microbatches "
+            f"{rec['microbatches']}, {TRAIN_B} x {TRAIN_S}: loss "
+            f"{rec['loss']:.6f} (CPU {rec['loss_cpu']:.6f}), grad norm "
+            f"{rec['grad_norm']:.6f} (CPU {rec['grad_norm_cpu']:.6f}), "
+            f"worst leaf {rec['worst_leaf']} rel L2 "
+            f"{rec['worst_leaf_rel_l2']:.6f}; adamw card vs CPU max rel "
+            f"{adam_err:.3g}")
+    log(f"{arch} x{layers} train-step check seconds: "
+        f"{ {k: round(v, 2) for k, v in clock.items()} }")
+    del state, state_cpu, grads_first, grads_on_card
+    return records
 
 
 def load_example(name: str):
@@ -2145,9 +2205,10 @@ def counted_step(torch, state) -> dict:
 
 
 def example_check(np, torch, tmp: str) -> dict:
-    """(d) ``examples/train_lm_torch.py --preset 100m``: 60 steps of 4 x
-    256 with a checkpoint at step 30; the loss must go DOWN; a rerun to 64
-    steps must restore the checkpoint published at step 60."""
+    """(d) ``examples/train_lm_torch.py --preset 100m``: EXAMPLE_STEPS
+    steps of 4 x 256 with a checkpoint every EXAMPLE_CKPT_AT; the loss
+    must go DOWN; a rerun to EXAMPLE_RERUN_STEPS steps must restore the
+    checkpoint published at the last step."""
     import contextlib
     import io
     example = load_example("train_lm_torch")
@@ -2189,26 +2250,31 @@ def train_phase(np, torch, smi: str, base_bytes: int) -> dict:
     if left > base_bytes + (64 << 20):
         raise AssertionError(f"phase 3d left {left - base_bytes} bytes on "
                              "the card")
-    t0 = time.perf_counter()
+    t0 = t = time.perf_counter()
+    parts = {}
     steps = []
-    for arch, layers, mb in TRAIN_STEPS:
-        steps.append(train_step_check(np, torch, arch, layers, mb))
+    for arch, layers, mbs in TRAIN_STEPS:
+        steps.extend(train_step_check(np, torch, arch, layers, mbs))
         free_card(torch)
+        t = lap(parts, f"(a) {arch}", t)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         restart = restart_check(np, torch, tmp + "/restart")
         free_card(torch)
+        t = lap(parts, "(b)", t)
         zamba = zamba_train_check(np, torch)
         free_card(torch)
+        t = lap(parts, "(c)", t)
         example = example_check(np, torch, tmp + "/example")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     free_card(torch)
+    lap(parts, "(d)", t)
     wall = time.perf_counter() - t0
-    log(f"phase 3e: {wall:.1f} s")
+    log(f"phase 3e: {wall:.1f} s ({parts})")
     report = {"steps": steps, "restart": restart, "zamba2_train": zamba,
-              "example": example, "wall_s": wall, "card": smi,
-              "allocated_after_phase3d_bytes": left}
+              "example": example, "wall_s": wall, "parts_s": parts,
+              "card": smi, "allocated_after_phase3d_bytes": left}
     print(json.dumps({"training": report}), flush=True)
     return report
 
@@ -2225,9 +2291,10 @@ MESH_BATCH, MESH_SEQ, MESH_SEED = 2, 512, 13
 #: (b): zamba2-2.7b at full width and one layer group (6 layers; 12 until
 #: phase 3g and 9 (d) needed the script's time), on a (2, 1) mesh
 MESH_ARCH, MESH_LAYERS, MESH_SHAPE = "zamba2-2.7b", 6, (2, 1)
-#: (c): (b)'s configuration, then yi-9b at full width and 2 layers (the
-#: vocabulary split over model, 4 KV heads over 2), on a (1, 2) mesh
-MP_SHAPE, MP_ARCH, MP_LAYERS = (1, 2), "yi-9b", 2
+#: (c): (b)'s configuration, then yi-9b at full width and 1 layer (2
+#: until the script needed its time; the vocabulary split over model, 4
+#: KV heads over 2), on a (1, 2) mesh
+MP_SHAPE, MP_ARCH, MP_LAYERS = (1, 2), "yi-9b", 1
 #: the collectives the probe runs on a two-rank gloo group of cuda:0
 #: tensors: raw c10d calls, then the DTensor redistributions they carry
 PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "all_gather",
@@ -2572,8 +2639,8 @@ def train_child(np, torch, rank: int, port: int, workdir: str) -> dict:
     group and run (b) on MESH_SHAPE, then (c) on MP_SHAPE: (b)'s
     configuration held to the same one-process step, its checkpoint
     too, then MP_ARCH (rank 0 runs its one-process step first, the other
-    rank waiting; not saved: 10.4 GB of state took 154 s to save on the
-    H100's host), each step under ``analysis.NoFunctionalGather``
+    rank waiting; not saved: its 10.4 GB of state at 2 layers took 154 s
+    to save on the H100's host), each step under ``analysis.NoFunctionalGather``
     (:func:`mesh_step_check`)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import pipeline
@@ -2668,7 +2735,9 @@ def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         probe = probe_collectives(tmp)
-        log(f"phase 3f (a) gloo on {MESH_DEV} tensors: {probe}")
+        probe_s = time.perf_counter() - t0
+        log(f"phase 3f (a) gloo on {MESH_DEV} tensors in {probe_s:.1f} s: "
+            f"{probe}")
         if any(probe[name] != "ok" for name in MESH_NEEDS):
             raise AssertionError(f"(b) and (c) need {MESH_NEEDS}: {probe}")
         ranks = spawn_ranks("dp", tmp)
@@ -2683,7 +2752,7 @@ def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
     log(f"phase 3f (c): {[round(t, 1) for t in mp_s]} s a rank")
     wall = time.perf_counter() - t0
     log(f"phase 3f: {wall:.1f} s")
-    report = {"probe": probe,
+    report = {"probe": probe, "probe_s": probe_s,
               "data_parallel": [{k: v for k, v in r.items()
                                  if not k.startswith("model_parallel")}
                                 for r in ranks],
@@ -2699,11 +2768,17 @@ def mesh_phase(np, torch, smi: str, base_bytes: int) -> dict:
 # ---------------------------------------------------------------------------
 
 TORCHRUN_CHILD = "--torchrun-child"   # argv[1] of a rank torchrun starts
-#: (a): phase 3's launcher and requests on a (2, 1) mesh
+#: (a): phase 3's launcher and requests on a (2, 1) mesh, (c) on (1, 2),
+#: yi-9b at full width and this depth (phase 3's 48 until the script
+#: needed its time), each held to a one-process run of the same depth:
+#: the last batch's full prefill within RTOL/ATOL, as the shallow resume
+#: check (at 48 layers it was held to DEEP_MAX_ABS/DEEP_MAX_OUTSIDE; at 8
+#: it measured max |diff| 0.046 and 0.055, no logit outside, on an H100)
 MESH_SERVE_ARGV = SERVE_ARGV + ["--mesh", "host"]
+MESH_SERVE_LAYERS = 8
 #: (b): qwen3-moe-30b-a3b at full width and this depth behind the edge
-#: (8 until phase 3g (c) and (d) needed the script's time)
-MESH_MOE_LAYERS = 4
+#: (8 until phase 3g (c) and (d) needed the script's time, then 4)
+MESH_MOE_LAYERS = 2
 #: (b)'s requests are two rows each, one on each rank (data
 #: parallelism).  A rank computes its row as one process computes that
 #: row alone, so the tokens are held to a one-process request loop that
@@ -2769,8 +2844,9 @@ def start_torchrun(args: list, log_path) -> subprocess.Popen:
 
 def serve_child(np, torch, workdir: str, part: str, shape,
                 ssm: bool = False) -> dict:
-    """(a), (c) One rank: ``launch/serve.serve`` with MESH_SERVE_ARGV on a
-    ``("data", "model")`` mesh of ``shape`` (the placed model, the rank's
+    """(a), (c) One rank: ``launch/serve.serve`` with MESH_SERVE_ARGV at
+    MESH_SERVE_LAYERS layers on a ``("data", "model")`` mesh of ``shape``
+    (the placed model, the rank's
     own index replica, the hit masks checked across the ranks), its
     records, multi-set launches, collectives and peak memory; rank 0
     also the gathered last-token logits of a full prefill of the last
@@ -2793,7 +2869,7 @@ def serve_child(np, torch, workdir: str, part: str, shape,
     with CollectiveCounter() as comms:
         run = serve.serve(serve.parse_args(argv),
                           mesh=Mesh(("data", "model"), shape),
-                          cfg=mp_ssm_config() if ssm else None)
+                          cfg=mp_ssm_config() if ssm else mesh_serve_config())
     launches = read_counts()["xam_search_multiset"]
     idx, eng = run.index, run.engine
     toks = run.batches[-1]
@@ -2920,11 +2996,12 @@ def mesh_serve_check(np, torch, one: dict, workdir: str,
     """(a) ``launch/serve.py --mesh host`` with phase 3's arguments
     (``kind`` ``serve_mp``: the (1, 2) mesh of (c); ``serve_ssm``: (d)),
     its ranks' results (:func:`serve_ranks`): both ranks' records equal;
-    hits, resumed chunks and admissions ``one``'s (phase 3's); greedy
-    tokens under the margin rule with its gaps; a full prefill of the
-    last batch within the 48-layer ceilings of phase 3's, or for (d) a
-    decode step's all-gather bytes the activation figure; each rank
-    launched the multi-set search once per lookup."""
+    hits, resumed chunks and admissions ``one``'s (the one-process run of
+    the same configuration, :func:`serve_one_process`); greedy tokens
+    under the margin rule with its gaps; a full prefill of the last batch
+    with every logit within RTOL/ATOL, or for (d) a decode
+    step's all-gather bytes the activation figure; each rank launched the
+    multi-set search once per lookup."""
     ranks = [result_of(kind, workdir, r) for r in range(MESH_WORLD)]
     if any(ranks[r]["records"] != ranks[0]["records"]
            for r in range(1, MESH_WORLD)):
@@ -2956,10 +3033,11 @@ def mesh_serve_check(np, torch, one: dict, workdir: str,
         b = one["logits_full_last"]
         d_max = float(np.abs(a - b).max())
         outside = float((np.abs(a - b) > ATOL + RTOL * np.abs(b)).mean())
-        if d_max > DEEP_MAX_ABS or outside > DEEP_MAX_OUTSIDE:
+        if outside > 0:
             raise AssertionError(f"full prefill over the mesh against one "
                                  f"process: max |diff| {d_max}, {outside} "
-                                 "outside rtol/atol")
+                                 f"of logits outside rtol {RTOL}/atol "
+                                 f"{ATOL}")
     for r in ranks:
         if r["launches"] != r["searches"] or r["launches"] <= 0:
             raise AssertionError(f"rank {r['rank']}: {r['launches']} "
@@ -2979,7 +3057,7 @@ def mesh_serve_check(np, torch, one: dict, workdir: str,
                 f"{outside:.5f} outside, "
                 f"{[round(r['prefill_s'], 4) for r in ranks]} s; decode "
                 f"{[round(r['decode_step_s'], 4) for r in ranks]} s a token")
-        what = "yi-9b x48"
+        what = f"yi-9b x{MESH_SERVE_LAYERS}"
     log(f"phase 3g {kind} {what}: records equal on both ranks "
         f"and to one process ({[g[:4] for g in got]}), requests' tokens "
         f"equal {tokens_equal:.3f}; {held}; serve loop "
@@ -3205,26 +3283,37 @@ def ssm_step_gather_bytes(cfg, rows: int) -> int:
     return rows * per
 
 
-def mp_ssm_one_process(np, torch) -> dict:
-    """(d)'s reference: MP_SSM_ARGV at MP_SSM_LAYERS layers served in this
-    process on the card, its records and every greedy step's top-2 gap;
-    the card freed after."""
+def mesh_serve_config():
+    """yi-9b at full width and MESH_SERVE_LAYERS layers, phase 3g (a) and
+    (c)'s config."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("yi-9b"), n_layers=MESH_SERVE_LAYERS)
+
+
+def serve_one_process(np, torch, argv: list, cfg,
+                      full_prefill: bool) -> dict:
+    """The reference of (a) and (c), or of (d): ``argv`` with ``cfg``
+    served in this process on the card, its records and every greedy
+    step's top-2 gap, and with ``full_prefill`` the last-token logits of
+    a full prefill of the last batch; the card freed after."""
     from repro_torch.launch import serve
     gaps = RecordedGaps(np)
-    run = serve.serve(serve.parse_args(MP_SSM_ARGV), cfg=mp_ssm_config(),
-                      on_logits=gaps.record)
+    run = serve.serve(serve.parse_args(argv), cfg=cfg, on_logits=gaps.record)
+    n_decode = int(argv[argv.index("--decode-tokens") + 1])
     one = {"records": [[r.chunks, r.hit_chunks, r.resumed_chunks,
                         int(r.admitted), r.decoded.tolist()]
                        for r in run.records],
-           "gaps": [g.tolist() for g in gaps.per_request(SSM_DECODE)],
+           "gaps": [g.tolist() for g in gaps.per_request(n_decode)],
            "admissions": run.index.stats.admissions, "seconds": run.seconds}
+    if full_prefill:
+        one["logits_full_last"] = run.engine.prefill(
+            run.batches[-1], None).state["logits"].float().cpu().numpy()
     del run
     free_card(torch)
     return one
 
 
-def mesh_serve_phase(np, torch, smi: str, base_bytes: int,
-                     one: dict) -> dict:
+def mesh_serve_phase(np, torch, smi: str, base_bytes: int) -> dict:
     """Phase 3g: free the card of phase 3f, then (a) the serve launcher
     and (b) the edge over a (2, 1) mesh of two ranks of ``cuda:0``, (c)
     the serve launcher and (d) zamba2-2.7b over (1, 2), each under
@@ -3241,7 +3330,10 @@ def mesh_serve_phase(np, torch, smi: str, base_bytes: int,
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
     try:
-        ssm_one = mp_ssm_one_process(np, torch)
+        ssm_one = serve_one_process(np, torch, MP_SSM_ARGV, mp_ssm_config(),
+                                    full_prefill=False)
+        one = serve_one_process(np, torch, SERVE_ARGV, mesh_serve_config(),
+                                full_prefill=True)
         serve_ranks(tmp)
         served = mesh_serve_check(np, torch, one, tmp)
         model_parallel = mesh_serve_check(np, torch, one, tmp, "serve_mp")
@@ -3320,13 +3412,14 @@ def timed_row(timer, name, kern, plain, n_bytes, n_ops, reps,
               plain_reps=None, **extra):
     """Kernel and plain version timed as phase 2 times them, beside the
     bound (the larger of bytes / HBM rate and operations / int8 rate).
-    With ``plain_reps`` (a plain version of thousands of launches) the
-    plain version is timed by CUDA events over that many calls only, and
-    its ``plain_ms`` is that per-call time."""
+    With ``plain_reps`` (a plain version of thousands of launches, which
+    the caller has just run to check the kernel) the plain version is
+    timed by CUDA events over that many calls only, without a warm-up,
+    and its ``plain_ms`` is that per-call time."""
     call_ms = timer.call_ms(kern)
     ms = timer.graph_ms(kern, reps=reps)
     if plain_reps:
-        plain_call_ms = timer.call_ms(plain, reps=plain_reps, warmup=1)
+        plain_call_ms = timer.call_ms(plain, reps=plain_reps, warmup=0)
         plain_ms = plain_call_ms
     else:
         plain_call_ms = timer.call_ms(plain)
@@ -3532,8 +3625,8 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
     from repro_torch.kernels.xam_search import ops as xam
     from repro_torch.kernels.xam_search.ref import xam_search_plain
 
-    t0 = time.perf_counter()
-    out = {}
+    t0 = t = time.perf_counter()
+    out, parts = {}, {}
     # Hopscotch lookup: H in {4, 32, 128} at both table sizes.
     rows, n_cases = [], 0
     for name, log2_n, n_q in HOP_SIZES:
@@ -3560,6 +3653,7 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
     log(f"hopscotch kernel == plain version on {n_cases} cases (H = 1..256, "
         "a first hit at every offset, windows below 0 and past N)")
     out["hopscotch_lookup"] = {"max_abs_err": 0.0, "shapes": rows}
+    t = lap(parts, "hopscotch_lookup", t)
 
     # String match: edge cases, then the 500 MiB corpus with P = 12.
     rng = np.random.default_rng(3)
@@ -3611,6 +3705,7 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
         del want
     del same_t
     out["string_match"] = {"max_abs_err": 0.0, "shapes": rows}
+    t = lap(parts, "string_match", t)
 
     # Flat search: Fig. 6 and dedup shapes, int8 and packed8 planes.
     rows = []
@@ -3667,7 +3762,8 @@ def kernels_phase(np, torch, timer, corpus_t) -> dict:
         f"{rows[0]['warm_ms']:.6f} ms)")
     out["xam_search"] = {"max_abs_err": 0.0, "shapes": rows,
                          "floor_ms": floor_ms, "fig6_over_floor": ratio}
-    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    lap(parts, "xam_search", t)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s ({parts})")
     return out
 
 
@@ -4263,24 +4359,34 @@ def held_to_baseline(got: dict, bench: str, keys) -> int:
 
 
 SPLIT_DEVICES = ("cuda:0", "cuda:0")   # the ("grid",) mesh of one card
+#: the split family runs the first this many requests of each trace (all
+#: 40,000 until the script needed its time), once unsharded and once split
+SPLIT_REQUESTS = 5_000
 
 
-def split_family_check(torch, sim, cfgs, trace_list, fams, res, states):
-    """The first Fig. 9 family whose lane count the two devices divide,
-    through ``simulate_grid(devices=SPLIT_DEVICES)``: two contiguous
-    blocks of lanes, one graph-replayed run each.  Every result and final
-    state equals the unsharded sweep's exactly."""
+def split_family_check(torch, sim, cfgs, trace_list, fams):
+    """The first Fig. 9 family whose lane count the two devices divide, on
+    the first SPLIT_REQUESTS requests of each trace: through
+    ``simulate_grid(devices=SPLIT_DEVICES)`` (two contiguous blocks of
+    lanes, one graph-replayed run each) and unsharded on one device.
+    Every result and final state equal."""
     from repro_torch.launch import mesh
     from repro_torch.pytree import tree_leaves
     fam = next(f for f in fams if mesh.make_grid_mesh(
         f["lanes"], SPLIT_DEVICES) is not None)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got, got_st = sim.simulate_grid({n: cfgs[n] for n in fam["configs"]},
-                                    trace_list, device="cuda",
-                                    devices=SPLIT_DEVICES, return_state=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    fam_cfgs = {n: cfgs[n] for n in fam["configs"]}
+    short = [(n, a[:SPLIT_REQUESTS], w[:SPLIT_REQUESTS])
+             for n, a, w in trace_list]
+    walls = {}
+    for key, devices in (("unsharded", SPLIT_DEVICES[:1]),
+                         ("split", SPLIT_DEVICES)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls[key] = sim.simulate_grid(fam_cfgs, short, device="cuda",
+                                       devices=devices, return_state=True)
+        torch.cuda.synchronize()
+        walls[key + "_wall_s"] = time.perf_counter() - t0
+    (res, states), (got, got_st) = walls["unsharded"], walls["split"]
     for key, r in got.items():
         if r != res[key]:
             raise AssertionError(f"split family {key}: {r} != {res[key]}")
@@ -4290,7 +4396,8 @@ def split_family_check(torch, sim, cfgs, trace_list, fams, res, states):
                                      "differs from the unsharded run's")
     return {"configs": fam["configs"], "lanes": fam["lanes"],
             "devices": list(SPLIT_DEVICES), "keys": len(got),
-            "wall_s": wall, "unsharded_wall_s": fam["wall_s"]}
+            "requests": SPLIT_REQUESTS, "wall_s": walls["split_wall_s"],
+            "unsharded_wall_s": walls["unsharded_wall_s"]}
 
 
 def simulator_phase(torch) -> dict:
@@ -4309,11 +4416,10 @@ def simulator_phase(torch) -> dict:
     trace_list = [(spec.name, *traces.generate(spec)) for spec in specs]
     gen9_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res9, st9, fam9 = run_families(torch, sim, cfgs, trace_list,
-                                   return_state=True)
+    res9, _, fam9 = run_families(torch, sim, cfgs, trace_list)
     sweep9_s = time.perf_counter() - t0
     fig9 = fig9_numbers(res9, specs, FIG9_SYSTEMS)
-    split = split_family_check(torch, sim, cfgs, trace_list, fam9, res9, st9)
+    split = split_family_check(torch, sim, cfgs, trace_list, fam9)
 
     t0 = time.perf_counter()
     cfg11 = fig11_config(sim)
@@ -4333,8 +4439,9 @@ def simulator_phase(torch) -> dict:
         fig11, "fig11", ["r_req_calibration", "years", "ideal_years",
                          "ss_mechanism_ratio", "claims"])
     log(f"phase 7: {compared} Fig. 9/11 baseline values reproduced exactly; "
-        f"family {split['configs']} split over {split['devices']} in "
-        f"{split['wall_s']:.1f} s equals the unsharded run")
+        f"family {split['configs']} on {split['requests']} requests split "
+        f"over {split['devices']} in {split['wall_s']:.1f} s equals its "
+        f"unsharded run ({split['unsharded_wall_s']:.1f} s)")
     log(f"phase 7: Fig. 9 sweep {sweep9_s:.1f} s, Fig. 11 sweep "
         f"{sweep11_s:.1f} s, peak device memory of one family's "
         f"simulate_grid {peak / 2 ** 20:.1f} MiB")
@@ -4391,11 +4498,12 @@ def sweep_check(np, torch, timer, cache_path) -> dict:
     from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
 
     committed = json.loads(autotune.DEFAULT_CACHE_PATH.read_text())
-    before = xam.LAUNCH_COUNT
+    before = xam.LAUNCH_COUNT, xam.FLAT_LAUNCH_COUNT
     t0 = time.perf_counter()
     payload = autotune.autotune(cache_path, device="cuda")
     sweep_s = time.perf_counter() - t0
-    launches = xam.LAUNCH_COUNT - before
+    launches = xam.LAUNCH_COUNT - before[0]
+    flat_launches = xam.FLAT_LAUNCH_COUNT - before[1]
     rows, chosen, hits = [], {}, 0
     for fmt in ("int8", "packed8"):
         for bucket, shapes in autotune.BUCKET_SHAPES.items():
@@ -4445,15 +4553,143 @@ def sweep_check(np, torch, timer, cache_path) -> dict:
     if hits == 0:
         raise AssertionError("the planted sweep batches found no hit")
     log(f"phase 8: sweep wrote {cache_path.name} in {sweep_s:.2f} s "
-        f"({launches} launches); chosen {chosen}; every candidate's answers "
-        f"equal the cold width's and the plain version's ({hits} planted "
-        f"hits)")
+        f"({launches} multi-set launches, {flat_launches} flat); chosen "
+        f"{chosen}; every candidate's answers equal the cold width's and "
+        f"the plain version's ({hits} planted hits)")
     return {"sweep_s": sweep_s, "launches_autotune": launches,
             "backend": payload["backend"], "chosen": chosen,
             "candidates": {"columns": [
                 "plane_format", "sets", "queries", "block_q",
                 "q1_us", "median_us", "q3_us", "cold_l2_us"],
-                "rows": rows}, "planted_hits": hits}
+                "rows": rows}, "planted_hits": hits,
+            "flat": flat_sweep_check(np, torch, timer, payload, committed,
+                                     flat_launches)}
+
+
+def flat_sweep_check(np, torch, timer, payload, committed,
+                     launches: int) -> dict:
+    """The flat search's families of the sweep: at every shape of
+    ``autotune.SEARCH_SHAPES`` and the ragged edge case
+    (``edge_cases.FLAT_RAGGED_SHAPE``), int8 and packed8, every candidate
+    ``(block_q, block_c)`` and the cold pair (``flat_geometry``) give the
+    plain version's bitmap; a refused pair raises.  Then, at the Fig. 6
+    and dedup shapes, the cold-L2 device time (``graph_ms``, in turns)
+    of the cold pair, the pair this sweep chose and the committed cache's
+    pair, which the path launches (phases 4 and 6)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.edge_cases import (FLAT_RAGGED_SHAPE,
+                                                flat_edge_case)
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.kernels.xam_search.kernel import flat_geometry
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+
+    pairs = [(bq, bc) for bq in autotune.BLOCK_Q_CANDIDATES
+             for bc in autotune.BLOCK_C_CANDIDATES]
+    shapes = [s for ss in autotune.SEARCH_SHAPES.values() for s in ss]
+    n_checked = 0
+    for q, r, c in shapes + [FLAT_RAGGED_SHAPE]:
+        keys, masks, data = flat_edge_case(q + r + c, q, r, c)
+        k, m, d = (torch.from_numpy(x).cuda() for x in (keys, masks, data))
+        for fmt in ("int8", "packed8"):
+            dd = xam.pack_rows(d) if fmt == "packed8" else d
+            want = xam_search_plain(k, dd, m)
+            for blocks in [flat_geometry(q, c)] + pairs:
+                assert_equal(torch, xam.xam_search_device(
+                    k, dd, m, blocks=blocks), want,
+                    f"flat search {q} x {r} x {c} ({fmt}) at {blocks}")
+                n_checked += 1
+            if int(want[0, c - 1]) != 1:
+                raise AssertionError("a planted flat-search hit was missed")
+    for blocks in ((8, 64), (8, 2048), (0, 128)):
+        try:
+            xam.xam_search_device(k, d, m, blocks=blocks)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"the flat launcher took the pair {blocks}")
+    served = served_past_grid_check(torch, xam_search_plain)
+
+    def pair_of(fams, key, cold):
+        fam = fams.get(key) or {}
+        return ((fam["block_q"], fam["block_c"])
+                if fam.get("block_q") is not None else cold)
+
+    chosen, rows = {}, []
+    for fmt in ("int8", "packed8"):
+        for bucket in autotune.SEARCH_SHAPES:
+            fam = payload["families"][
+                f"xam_search/{payload['backend']}/{fmt}/{bucket}"]
+            chosen[f"{fmt}/{bucket}"] = [fam["block_q"], fam["block_c"]]
+        for name, (q, r, c) in (("Fig. 6", FIG6), ("dedup", DEDUP)):
+            key = (f"xam_search/{payload['backend']}/{fmt}/"
+                   f"{autotune.search_bucket(q, c)}")
+            cold = flat_geometry(q, c)
+            run = {"cold": cold,
+                   "swept": pair_of(payload["families"], key, cold),
+                   "committed": pair_of(committed["families"], key, cold)}
+            ops_ = autotune.search_workload(q, r, c, fmt, "cuda")
+            reps = 5 if q * c > 1 << 20 else 100
+            ms = {which: [] for which in run}
+            for which in list(run) + list(run)[::-1]:
+                ms[which].append(timer.graph_ms(
+                    lambda: xam.xam_search_device(*ops_,
+                                                  blocks=run[which]),
+                    reps=reps))
+            row = {"shape": name, "q": q, "r": r, "c": c,
+                   "plane_format": fmt,
+                   **{f"{w}_pair": list(p) for w, p in run.items()},
+                   **{f"{w}_ms": statistics.mean(t) for w, t in ms.items()},
+                   "turns_ms": ms}
+            rows.append(row)
+            log(f"flat {name} {q} x {r} x {c} ({fmt}): cold pair {cold} "
+                f"{row['cold_ms']:.6f} ms, swept {run['swept']} "
+                f"{row['swept_ms']:.6f} ms, committed {run['committed']} "
+                f"{row['committed_ms']:.6f} ms (cold L2, turns {ms})")
+    log(f"phase 8: flat sweep {launches} launches; chosen {chosen}; "
+        f"{n_checked} (shape, format, pair) bitmaps equal the plain "
+        f"version's; refused pairs raise")
+    return {"launches_autotune": launches, "chosen": chosen,
+            "pairs_checked": n_checked, "times": rows,
+            "served_past_grid": served}
+
+
+#: A flat search of more queries than 64-query blocks can cover in the
+#: grid's 65535 rows, against 128 columns (a large dedup batch).
+PAST_GRID = (64 * 65535 + 1, 32, 128)
+
+
+def served_past_grid_check(torch, plain) -> dict:
+    """``PAST_GRID`` through ``xam_search_device`` with the pair the
+    committed cache serves (``autotune.search_blocks``), int8 and packed8:
+    the launch is taken, its bitmap equals the cold pair's, and its first
+    4096 rows equal the plain version's."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.xam_search import ops as xam
+    from repro_torch.kernels.xam_search.kernel import flat_geometry
+
+    q, r, c = PAST_GRID
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = torch.randint(0, 2, (q, r), generator=gen, dtype=torch.int8,
+                      device="cuda")
+    m = torch.ones_like(k)
+    d = torch.randint(0, 2, (r, c), generator=gen, dtype=torch.int8,
+                      device="cuda")
+    out = {}
+    for fmt in ("int8", "packed8"):
+        dd = xam.pack_rows(d) if fmt == "packed8" else d
+        pair = autotune.search_blocks(q, c, fmt, "cuda")
+        got = xam.xam_search_device(k, dd, m)
+        assert_equal(torch, got, xam.xam_search_device(
+            k, dd, m, blocks=flat_geometry(q, c)),
+            f"flat search {q} x {r} x {c} ({fmt}) at the served {pair}")
+        assert_equal(torch, got[:4096], plain(k[:4096], dd, m[:4096]),
+                     f"flat search {q} x {r} x {c} ({fmt}) first rows")
+        out[fmt] = list(pair)
+        del got
+    log(f"flat {q} x {r} x {c}: served pairs {out} (cold "
+        f"{flat_geometry(q, c)}) taken, bitmaps equal the cold pair's")
+    del k, m, d
+    torch.cuda.empty_cache()
+    return out
 
 
 #: Fingerprints per warm-cache lookup batch: the serve launcher's batch
@@ -5000,8 +5236,7 @@ def main() -> int:
     ssm = ssm_phase(np, torch, smi, base_bytes)
     training = train_phase(np, torch, smi, base_bytes)
     meshed = mesh_phase(np, torch, smi, base_bytes)
-    mesh_served = mesh_serve_phase(np, torch, smi, base_bytes,
-                                   served["one_process"])
+    mesh_served = mesh_serve_phase(np, torch, smi, base_bytes)
 
     t0 = time.perf_counter()
     corpus_t = torch.from_numpy(make_corpus(CORPUS_BYTES, seed=0)).cuda()
@@ -5101,6 +5336,11 @@ def main() -> int:
             "shapes": shapes,
             **{k: v for k, v in slice2[name].items()
                if k not in ("max_abs_err", "shapes")}})
+        if name == "xam_search":
+            flat = tooling["sweep"]["flat"]
+            kernels[-1]["launches_autotune"] = flat["launches_autotune"]
+            kernels[-1]["blocks"] = {"chosen": flat["chosen"],
+                                     "times": flat["times"]}
         if name == "hopscotch_lookup":
             kernels[-1]["floor_ms"] = slice2["xam_search"]["floor_ms"]
             kernels[-1]["sector_bound_ms"] = shapes[row]["sector_bound_ms"]

@@ -1,30 +1,41 @@
-"""Measured query-block width for the fused multi-set XAM search (port of
+"""Measured block shapes for the XAM search kernels (port of
 ``repro/kernels/autotune.py``).
 
-The host packs a lookup batch into per-set blocks of ``block_q`` queries
-(``xam_search/ops.py`` ``group_queries_by_set``) and the kernel gives
-each block to one thread block.  A small sweep (:func:`autotune`, or
-``python -m repro_torch.kernels.autotune --out <file>`` on the card)
-times the candidate widths per family on the batches the serving path
-sends and writes the choices to a cache file; the committed one is
-``autotune_cache.json`` beside this module.
+The fused multi-set search: the host packs a lookup batch into per-set
+blocks of ``block_q`` queries (``xam_search/ops.py``
+``group_queries_by_set``) and the kernel gives each block to one thread
+block.  The flat search (the Fig. 6 API, ``dedup_mask``): a thread block
+covers ``block_q`` queries by ``block_c`` columns of its (Q, C) bitmap.
+A small sweep (:func:`autotune`, or ``python -m
+repro_torch.kernels.autotune --out <file>`` on the card) times the
+candidates per family on the batches the path sends and writes the
+choices to a cache file; the committed one is ``autotune_cache.json``
+beside this module.
 
-A *family* is ``xam_multiset/{backend}/{plane_format}/{shape_bucket}``:
+A *family* is ``{kernel}/{backend}/{plane_format}/{shape_bucket}``:
 
+* ``kernel`` — ``xam_multiset`` (tunes ``block_q``) or ``xam_search``
+  (tunes the pair ``(block_q, block_c)``);
 * ``backend`` — ``cpu`` for host tensors, ``cuda:<device name>`` for
-  the card that holds the planes, so a width measured on one card never
+  the card that holds the planes, so a shape measured on one card never
   steers another;
 * ``plane_format`` — ``int8`` / ``packed8`` (``kernels/common.py``);
-* ``shape_bucket`` — ``narrow`` below ``WIDE_BLOCK_AT`` queries, ``wide``
-  at or above: every batch in a bucket gets ONE width, cache hit or not.
+* ``shape_bucket`` — for ``xam_multiset`` ``narrow`` below
+  ``WIDE_BLOCK_AT`` queries, ``wide`` at or above; for ``xam_search``
+  ``small`` where the cold pair narrows its blocks to cover the card's
+  SMs and ``large`` where it does not (:func:`search_bucket`).  Every
+  batch in a bucket gets ONE shape, cache hit or not.
 
-Misses fall back DETERMINISTICALLY to the two-point constants (16 below
-256 queries, 64 at or above), so a cold cache (a missing or unreadable
-file, an unknown card, any CPU run against the committed file) gives
-exactly the widths used before the sweep existed.  The width never
-changes an answer (first valid way per query), only its speed.
-``REPRO_TORCH_AUTOTUNE_CACHE`` points the loader at another file; the
-reference's ``REPRO_AUTOTUNE_CACHE`` does not steer the port.
+Misses fall back DETERMINISTICALLY to the launch shapes used before the
+sweep existed: the multi-set search's two-point constants (16 below 256
+queries, 64 at or above), the flat search's cold pair
+(``xam_search/kernel.py`` ``flat_geometry``, a function of Q and C).  So
+a cold cache (a missing or unreadable file, an unknown card, any CPU run
+against the committed file) launches exactly as before.  A shape never
+changes an answer (first valid way per query; every query's full bitmap),
+only its speed.  ``REPRO_TORCH_AUTOTUNE_CACHE`` points the loader at
+another file; the reference's ``REPRO_AUTOTUNE_CACHE`` does not steer the
+port.
 
 Where the port's sweep differs from the reference's: on the card it takes
 the kernel's DEVICE time (a CUDA graph of ``GRAPH_CALLS`` launches,
@@ -33,12 +44,16 @@ kernel of a few microseconds is mostly launch and synchronisation; it
 times each bucket at the batch shapes the serving path sends
 (``BUCKET_SHAPES``), not at one synthetic size; and a candidate replaces
 the cold width only where its replays' upper quartile lies under the cold
-width's lower quartile on every shape of the bucket, so a near tie keeps
-the cold width and one slow replay does not decide.
-
-Not ported: the reference's ``xam_search`` family and ``search_blocks``.
-The flat search's CUDA kernel has compile-time tiles and no run-time
-``block_q``/``block_c``, so a cached pair would steer nothing.
+width's lower quartile, less ``MIN_GAIN``, on every shape of the bucket,
+so a near tie keeps the cold width and one slow replay does not decide.  The flat search's
+buckets replace the reference's one ``default`` bucket: on the card one
+fixed pair cannot serve a 512-column search, which needs narrow blocks to
+reach the SMs, and a 65,536-column one; and its cold pair is not one
+constant but ``flat_geometry`` at each shape, so a candidate pair is held
+against the cold pair of each shape of the bucket, and a bucket where no
+pair wins on every shape records an explicit cold entry.  The block-c
+candidates add 1024 to the reference's (128, 256, 512): the cold pair
+takes it at the dedup shape.
 """
 from __future__ import annotations
 
@@ -54,6 +69,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import resolve_plane_format
+from repro_torch.kernels.xam_search.kernel import (FLAT_BLOCK_C,
+                                                   FLAT_MAX_GRID_Y,
+                                                   flat_geometry)
 
 #: Committed choices; regenerate with ``python -m
 #: repro_torch.kernels.autotune --out <file>`` on the card.
@@ -68,8 +86,10 @@ MULTISET_BLOCK_Q = 16
 WIDE_BLOCK_AT = 256
 WIDE_BLOCK_Q = 64
 
-#: Sweep candidates.
+#: Sweep candidates: ``block_q`` for both searches, ``block_c`` for the
+#: flat one (every column block its launcher takes).
 BLOCK_Q_CANDIDATES = (8, 16, 32, 64, 128)
+BLOCK_C_CANDIDATES = FLAT_BLOCK_C
 
 #: The batches the serving path sends, per shape bucket, as (sets,
 #: queries): a lookup of two 96-token prompts and the serve launcher's
@@ -77,6 +97,20 @@ BLOCK_Q_CANDIDATES = (8, 16, 32, 64, 128)
 #: one-card index of 65,536 slots at or above it.
 BUCKET_SHAPES = {"narrow": ((8, 12), (8, 96)),
                  "wide": ((32, 256), (128, 4096))}
+
+#: The flat search's shapes, per shape bucket, as (Q, R, C): ``small``
+#: holds the Fig. 6 search of one key against one Monarch set, which the
+#: path sends, and the reference's sweep shape of 64 keys, which no path
+#: of the port sends; ``large`` holds ``dedup_mask``'s 4096 fingerprints
+#: against 65,536 columns, which the path sends.
+SEARCH_SHAPES = {"small": ((1, 64, 512), (64, 64, 512)),
+                 "large": ((4096, 32, 65536),)}
+
+#: The least gain a candidate must show over the cold key, as a share of
+#: the cold key's lower quartile: sweeps in separate calls on the card
+#: read the dedup search's cold pair about 1% apart, so a smaller win is
+#: not one that a second sweep would repeat.
+MIN_GAIN = 0.02
 
 #: Searches captured in one CUDA graph; a replay's time over this is one
 #: search's device time.
@@ -145,6 +179,36 @@ def multiset_block_q(n_queries: int, plane_format: str = "int8",
     if fam is not None:
         return int(fam["block_q"])
     return cold_block_q(n_queries)
+
+
+def search_bucket(q: int, c: int) -> str:
+    """The flat search's shape bucket of a (Q, R) x (R, C) search:
+    ``small`` where the cold pair narrows its blocks to cover the SMs,
+    ``large`` where it takes the widest."""
+    return "small" if flat_geometry(q, c)[1] < FLAT_BLOCK_C[-1] else "large"
+
+
+def search_blocks(q: int, c: int, plane_format: str = "int8",
+                  device: str | torch.device | None = None
+                  ) -> tuple[int, int]:
+    """Measured ``(block_q, block_c)`` for the flat search of ``q``
+    queries over ``c`` columns on ``device`` (None: the card if there is
+    one), deterministic per (shape bucket, plane format): the cached pair
+    when the family holds one, else ``flat_geometry(q, c)``, as on the
+    CPU, whose plain version takes no pair.  A cached ``block_q`` is
+    widened where ``q`` would need more query blocks than the launcher's
+    grid takes (``FLAT_MAX_GRID_Y``), as ``flat_geometry`` widens its own;
+    the answer is the same at any width."""
+    plane_format = resolve_plane_format(plane_format)
+    dev = torch.device(device if device is not None else
+                       "cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type == "cuda":
+        fam = _families().get(family_key(
+            "xam_search", plane_format, search_bucket(q, c), dev))
+        if isinstance(fam, dict) and fam.get("block_q") is not None:
+            return (max(int(fam["block_q"]), -(-q // FLAT_MAX_GRID_Y)),
+                    int(fam["block_c"]))
+    return flat_geometry(q, c)
 
 
 def cache_fingerprint() -> str:
@@ -249,23 +313,89 @@ def _time_multiset(n_sets: int, n_q: int, block_q: int, plane_format: str,
             else _wall_us(fn, reps))
 
 
+def search_workload(q: int, r: int, c: int, plane_format: str,
+                    device: str | torch.device):
+    """The flat sweep's operands (numpy generator seeded 0): (Q, R) keys,
+    full masks and an (R, C) plane, packed for ``packed8``, on ``device``:
+    the arguments of ``ops.xam_search_device`` in order."""
+    import numpy as np
+
+    from repro_torch.kernels.xam_search import ops as xam_ops
+
+    rng = np.random.default_rng(0)
+    dev = torch.device(device)
+    keys = torch.from_numpy(rng.integers(0, 2, (q, r)).astype(np.int8))
+    data = torch.from_numpy(rng.integers(0, 2, (r, c)).astype(np.int8))
+    if plane_format == "packed8":
+        data = xam_ops.pack_rows(data)
+    return keys.to(dev), data.to(dev), torch.ones_like(keys).to(dev)
+
+
+def _time_search(q: int, r: int, c: int, blocks: tuple[int, int],
+                 plane_format: str, reps: int,
+                 device: torch.device) -> list[float]:
+    """Per-rep us of one flat search of the sweep's operands at the pair
+    ``blocks``: device time by graph replay on the card, wall time on the
+    host (where the plain version ignores the pair)."""
+    from repro_torch.kernels.xam_search import ops as xam_ops
+
+    operands = search_workload(q, r, c, plane_format, device)
+    fn = lambda: xam_ops.xam_search_device(*operands, blocks=blocks)
+    return (_graph_us(fn, reps) if device.type == "cuda"
+            else _wall_us(fn, reps))
+
+
 def _quartiles(t: list[float]) -> list[float]:
     """Lower quartile, median and upper quartile of the reps."""
     return statistics.quantiles(t, n=4, method="inclusive")
 
 
-def _choose(times: dict[int, list[list[float]]], cold: int) -> int:
-    """The cold width, unless some candidate is faster on every shape of
-    the bucket beyond the spread of the reps (its upper quartile under
-    the cold width's lower quartile); then the least sum of medians among
-    those."""
-    faster = [bq for bq, per_shape in times.items() if all(
-        _quartiles(t)[2] < _quartiles(c)[0]
+def _choose(times: dict, cold):
+    """The cold key, unless some candidate is faster on every shape of the
+    bucket beyond the spread of the reps and by ``MIN_GAIN`` (its upper
+    quartile under ``1 - MIN_GAIN`` of the cold key's lower quartile);
+    then the least sum of medians among those.
+    ``times`` maps each key (a width, or a ``(block_q, block_c)`` pair) to
+    its per-shape reps; the cold key's reps may be another launch shape on
+    each shape (the flat search's ``flat_geometry``)."""
+    faster = [k for k, per_shape in times.items() if all(
+        _quartiles(t)[2] < (1 - MIN_GAIN) * _quartiles(c)[0]
         for t, c in zip(per_shape, times[cold]))]
     if not faster:
         return cold
-    return min(faster, key=lambda bq: sum(
-        statistics.median(t) for t in times[bq]))
+    return min(faster, key=lambda k: sum(
+        statistics.median(t) for t in times[k]))
+
+
+def _swept(times: dict) -> dict:
+    """Each key's quartiles on each shape, rounded to ns."""
+    return {str(k): dict(zip(("q1_us", "median_us", "q3_us"), zip(
+        *([round(v, 3) for v in _quartiles(t)] for t in per_shape))))
+        for k, per_shape in times.items()}
+
+
+def _sweep_search(plane_format: str, reps: int, dev: torch.device,
+                  backend: str) -> dict:
+    """The flat search's families of one plane format: every candidate
+    pair (keyed ``"8x128"``) and the cold pair (``"cold"``,
+    ``flat_geometry`` of each shape) timed on each shape of the bucket
+    (``SEARCH_SHAPES``)."""
+    pairs = {"cold": None, **{f"{bq}x{bc}": (bq, bc)
+                              for bq in BLOCK_Q_CANDIDATES
+                              for bc in BLOCK_C_CANDIDATES}}
+    families = {}
+    for bucket, shapes in SEARCH_SHAPES.items():
+        times = {name: [_time_search(
+            q, r, c, pair or flat_geometry(q, c), plane_format, reps, dev)
+            for q, r, c in shapes] for name, pair in pairs.items()}
+        best = pairs[_choose(times, "cold")] or (None, None)
+        families[f"xam_search/{backend}/{plane_format}/{bucket}"] = {
+            "block_q": best[0], "block_c": best[1],
+            "shapes": [list(s) for s in shapes],
+            "cold": [list(flat_geometry(q, c)) for q, _, c in shapes],
+            "swept": _swept(times),
+        }
+    return families
 
 
 def autotune(out_path: pathlib.Path | str | None = None,
@@ -276,7 +406,9 @@ def autotune(out_path: pathlib.Path | str | None = None,
     Returns the cache payload (also written to ``out_path``, default the
     committed ``autotune_cache.json``).  Each family records every
     candidate's quartiles on each of its bucket's shapes
-    (``BUCKET_SHAPES``), and the width :func:`_choose` took."""
+    (``BUCKET_SHAPES``, ``SEARCH_SHAPES``), and what :func:`_choose` took:
+    a multi-set family its width, a flat family its pair, or null for the
+    cold pair, whose own quartiles stand under ``"cold"``."""
     dev = resolve_device(device)
     reps = 5 if quick else 15
     backend = _backend(dev)
@@ -293,12 +425,9 @@ def autotune(out_path: pathlib.Path | str | None = None,
                 "block_q": best,
                 "cold_block_q": cold,
                 "shapes": [list(s) for s in shapes],
-                "swept": {str(bq): dict(zip(
-                    ("q1_us", "median_us", "q3_us"),
-                    zip(*([round(v, 3) for v in _quartiles(t)]
-                          for t in per_shape))))
-                    for bq, per_shape in times.items()},
+                "swept": _swept(times),
             }
+        families.update(_sweep_search(plane_format, reps, dev, backend))
     payload = {
         "version": 1,
         "backend": backend,
@@ -306,6 +435,7 @@ def autotune(out_path: pathlib.Path | str | None = None,
                    else "host wall"),
         "reps": reps,
         "block_q_candidates": list(BLOCK_Q_CANDIDATES),
+        "block_c_candidates": list(BLOCK_C_CANDIDATES),
         "families": families,
     }
     path = pathlib.Path(out_path) if out_path else DEFAULT_CACHE_PATH
@@ -327,12 +457,19 @@ def main(argv: list[str] | None = None) -> int:
     payload = autotune(args.out, quick=args.quick, device=args.device)
     for key in sorted(payload["families"]):
         fam = payload["families"][key]
-        for bq, t in sorted(fam["swept"].items(), key=lambda kv: int(kv[0])):
-            print(f"[autotune] {key} block_q {int(bq):3d}: median "
-                  f"{t['median_us']} us (quartiles {t['q1_us']}, "
-                  f"{t['q3_us']}) at (sets, queries) {fam['shapes']}")
-        print(f"[autotune] {key}: block_q={fam['block_q']} (cold "
-              f"{fam['cold_block_q']})")
+        flat = key.startswith("xam_search/")
+        for k, t in fam["swept"].items():
+            print(f"[autotune] {key} {'pair' if flat else 'block_q'} "
+                  f"{k:>7}: median {t['median_us']} us (quartiles "
+                  f"{t['q1_us']}, {t['q3_us']}) at "
+                  f"{'(Q, R, C)' if flat else '(sets, queries)'} "
+                  f"{fam['shapes']}")
+        if flat:
+            print(f"[autotune] {key}: block_q={fam['block_q']} block_c="
+                  f"{fam['block_c']} (null: the cold pairs {fam['cold']})")
+        else:
+            print(f"[autotune] {key}: block_q={fam['block_q']} (cold "
+                  f"{fam['cold_block_q']})")
     path = pathlib.Path(args.out) if args.out else DEFAULT_CACHE_PATH
     print(f"[autotune] wrote {path} (fingerprint {_fingerprint(path)})")
     return 0

@@ -1,7 +1,6 @@
-"""Numpy makers of the edge cases of the multi-set XAM search and the
-hopscotch lookup: 4-column vectors and column chunks, word-count
-templates, staged query chunks, block minima, lane groups and window
-steps.  ``chip_smoke.py`` and the card tests hold the kernels against their
+"""Numpy makers of the edge cases of the XAM searches and the hopscotch
+lookup: 4-column vectors and column chunks, word-count templates, staged
+query chunks, block minima, lane groups and window steps.  ``chip_smoke.py`` and the card tests hold the kernels against their
 plain versions on these cases; the CPU tests hold the plain versions
 against the JAX package on the same ones."""
 from __future__ import annotations
@@ -11,6 +10,12 @@ import numpy as np
 from repro_torch.kernels.common import pack_bits_np
 
 MULTISET_EDGE_COLS = (0, 3, 4, 127, 128, 511)
+
+#: A flat search off every boundary of the kernel's layout: C not a
+#: multiple of 4 (a ragged last column vector), R not a multiple of 32 or
+#: of 8 (a partial key word, a padded packed word), Q over two staged
+#: query chunks of 64.
+FLAT_RAGGED_SHAPE = (130, 45, 1001)
 
 
 def multiset_edge_case(seed: int, r: int, c: int, block_q: int = 16,
@@ -66,6 +71,24 @@ def multiset_edge_case(seed: int, r: int, c: int, block_q: int = 16,
         keys, masks = pad(keys, 1), pad(masks, 1)
         planes = pack_bits_np(pad(planes, 1), axis=1)
     return keys, masks, planes, valid, block_sets, live, targets
+
+
+def flat_edge_case(seed: int, q: int, r: int, c: int):
+    """``(keys, masks, data)`` int8 {0,1} arrays of a (Q, R) x (R, C) flat
+    search: every third query's key stored in a column (the last column
+    for query 0) under a full mask, every seventh mask all zero (the row
+    matches every column), every fifth mask clearing the key's low half,
+    the rest random keys under random masks."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2, (q, r)).astype(np.int8)
+    data = rng.integers(0, 2, (r, c)).astype(np.int8)
+    masks = (rng.random((q, r)) < 0.9).astype(np.int8)
+    for i in range(0, q, 3):
+        data[:, c - 1 if i == 0 else (7 * i) % c] = keys[i]
+        masks[i] = 1
+    masks[1::7] = 0
+    masks[4::5, : r // 2] = 0
+    return keys, masks, data
 
 
 def hop_edge_case(seed: int, window: int):

@@ -40,12 +40,16 @@
 //    multiple of 4, or a plane view not 4-byte aligned) and ragged R are
 //    masked inside the kernel with byte loads and stores; nothing is padded.
 //  - The column words stay in registers while the block walks its queries.
-//    The grid's query split is only as fine as filling the 132 SMs needs
-//    (kTargetBlocks, over two waves): a block re-reads its columns from L2
-//    only for that split, and walks its contiguous query range in chunks of
-//    kQChunk staged in shared memory.  A grid too small to cover the SMs
-//    (the Fig. 6 shape: 512 columns, one query) takes narrower blocks, down
-//    to one warp, so its plane is pulled through several SMs at once.
+//    A block covers block_c = 4 x threads columns and block_q queries, both
+//    chosen at run time by the caller: the cold pair (kernel.py
+//    flat_geometry) splits the queries only as finely as filling the 132
+//    SMs needs (2048 blocks, over two waves), so a block re-reads its
+//    columns from L2 only for that split, and gives a grid too small to
+//    cover the SMs (the Fig. 6 shape: 512 columns, one query) narrower
+//    blocks, down to one warp, so its plane is pulled through several SMs
+//    at once; a measured pair (kernels/autotune.py search_blocks) replaces
+//    it per shape bucket.  A block walks its contiguous query range in
+//    chunks of kQChunk staged in shared memory, so any block_q is legal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,12 +58,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // largest block; small grids use less
+constexpr int kThreads = 256;         // largest block (block_c 1024)
+constexpr int kMinThreads = 32;       // smallest block (block_c 128)
 constexpr int kQChunk = 64;           // queries staged in shared memory
 constexpr int kPrefetch = 2;          // staging steps a warp loads up front
-constexpr int kSMs = 132;
 constexpr int kMaxWords = 16;         // key rows <= 512
-constexpr int kTargetBlocks = 2048;   // about 2 waves of 8 blocks / 132 SMs
 constexpr int kMaxGridY = 65535;
 
 template <int NW>
@@ -172,45 +175,43 @@ void launch(dim3 grid, int threads, cudaStream_t s, const void* keys,
 extern "C" {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-// rp (the packed row count) is implied by r for the search and is checked
-// by the caller; it stays in the signature for the bindings.
+// A block covers block_c columns (128, 256, 512 or 1024: one to eight warps
+// of 4 columns a thread) and block_q >= 1 queries; any other pair, or one
+// whose grid needs more than 65535 query blocks, is refused with
+// cudaErrorInvalidValue and nothing is launched.  The pair never changes
+// the bitmap.  rp (the packed row count) is implied by r for the search
+// and is checked by the caller; it stays in the signature for the
+// bindings.
 int xam_search_launch(const void* keys, const void* masks, const void* data,
                       void* out, int q, int r, int rp, int c, int packed,
-                      void* stream) {
+                      int block_q, int block_c, void* stream) {
   (void)rp;
+  const int threads = block_c / kColsPerThread;
+  if (block_q < 1 || block_c % kColsPerThread != 0 ||
+      threads < kMinThreads || threads > kThreads ||
+      (threads & (threads - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q == 0 || c == 0) return 0;
   if (r < 0 || r > kMaxWords * 32) return static_cast<int>(cudaErrorInvalidValue);
   const int nw = r <= 32 ? 1 : (r + 31) / 32;
   const int vec_ok = r > 0 && c % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(data) & 3) == 0 &&
                      (reinterpret_cast<uintptr_t>(out) & 3) == 0;
-  const int q_chunks = (q + kQChunk - 1) / kQChunk;
-  // The widest block (down to one warp) whose grid still covers the SMs:
-  // a small search spreads its plane over more SMs' load paths.
-  int threads = kThreads;
-  while (threads > 32 &&
-         static_cast<long>((c + threads * kColsPerThread - 1) /
-                           (threads * kColsPerThread)) * q_chunks < kSMs)
-    threads /= 2;
-  const int col_blocks = (c + threads * kColsPerThread - 1) /
-                         (threads * kColsPerThread);
-  int grid_y = (kTargetBlocks + col_blocks - 1) / col_blocks;
-  grid_y = grid_y < q_chunks ? grid_y : q_chunks;
-  grid_y = grid_y < kMaxGridY ? grid_y : kMaxGridY;
-  const int q_per_block = (q + grid_y - 1) / grid_y;
-  grid_y = (q + q_per_block - 1) / q_per_block;     // no empty blocks
-  const dim3 grid(col_blocks, grid_y);
+  const int col_blocks = (c + block_c - 1) / block_c;
+  const long grid_y = (static_cast<long>(q) + block_q - 1) / block_q;
+  if (grid_y > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(col_blocks, static_cast<unsigned>(grid_y));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nw <= 1)
-    launch<1>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+    launch<1>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, block_q);
   else if (nw <= 2)
-    launch<2>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+    launch<2>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, block_q);
   else if (nw <= 4)
-    launch<4>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+    launch<4>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, block_q);
   else if (nw <= 8)
-    launch<8>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+    launch<8>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, block_q);
   else
-    launch<16>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, q_per_block);
+    launch<16>(grid, threads, s, keys, masks, data, out, q, r, c, packed, vec_ok, block_q);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,6 +29,29 @@ MAX_KEY_BITS = 512
 MAX_INT32 = 2 ** 31 - 1
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 
+#: The flat search's legal column blocks (4 columns a thread, one to eight
+#: warps) and the most query blocks its grid takes (the grid's y limit).
+FLAT_BLOCK_C = (128, 256, 512, 1024)
+FLAT_MAX_GRID_Y = 65535
+#: The cold pair's constants: queries staged per chunk, SMs to cover,
+#: blocks to aim for (about two waves).
+_Q_CHUNK, _SMS, _TARGET_BLOCKS = 64, 132, 2048
+
+
+def flat_geometry(q: int, c: int) -> tuple[int, int]:
+    """The flat search's cold ``(block_q, block_c)`` for a (Q, R) x (R, C)
+    search: the widest block, down to one warp, whose grid still covers
+    the card's SMs, then queries split only as finely as about two waves
+    of blocks need.  The pair the launcher took before it was given one,
+    and the answer of a cold autotune cache."""
+    q_chunks = max(-(-q // _Q_CHUNK), 1)
+    block_c = FLAT_BLOCK_C[-1]
+    while block_c > FLAT_BLOCK_C[0] and -(-c // block_c) * q_chunks < _SMS:
+        block_c //= 2
+    col_blocks = max(-(-c // block_c), 1)
+    grid_y = min(-(-_TARGET_BLOCKS // col_blocks), q_chunks, FLAT_MAX_GRID_Y)
+    return max(-(-q // grid_y), 1), block_c
+
 
 @functools.lru_cache(maxsize=None)
 def library() -> KernelLibrary:
@@ -43,7 +66,7 @@ def library() -> KernelLibrary:
 def flat_library() -> KernelLibrary:
     """The flat search library (built once per source version)."""
     kl = build.compile_and_load(_CSRC / "xam_search.cu", "xam_search")
-    kl.lib.xam_search_launch.argtypes = [_VP] * 4 + [_CI] * 5 + [_VP]
+    kl.lib.xam_search_launch.argtypes = [_VP] * 4 + [_CI] * 7 + [_VP]
     kl.lib.xam_search_launch.restype = _CI
     kl.lib.xam_search_floor_launch.argtypes = [_VP]
     kl.lib.xam_search_floor_launch.restype = _CI
@@ -84,14 +107,18 @@ def xam_search_multiset_cuda(keys: torch.Tensor, masks: torch.Tensor,
 
 
 def xam_search_cuda(keys: torch.Tensor, data: torch.Tensor,
-                    masks: torch.Tensor) -> torch.Tensor:
+                    masks: torch.Tensor, *, block_q: int,
+                    block_c: int) -> torch.Tensor:
     """Launch the flat search kernel on the current stream (no
-    synchronisation).
+    synchronisation), ``block_q`` queries by ``block_c`` columns a thread
+    block.
 
     keys/masks (Q, R) int8 {0,1}; data (R, C) int8 or (Rp, C) uint8
     packed words with ``Rp * 8 >= R``; all contiguous CUDA tensors on one
     device.  Returns the (Q, C) int8 bitmap, allocated here.  An all-zero
-    mask row matches every column."""
+    mask row matches every column.  Raises ``RuntimeError`` if the
+    launcher refuses the pair (``block_c`` not in ``FLAT_BLOCK_C``,
+    ``block_q`` under 1, over 65535 query blocks)."""
     build.check_cuda_operands("xam_search_cuda", data, keys, masks)
     q, r = keys.shape
     rp, c = data.shape
@@ -103,7 +130,7 @@ def xam_search_cuda(keys: torch.Tensor, data: torch.Tensor,
         kl.check(kl.lib.xam_search_launch(
             keys.data_ptr(), masks.data_ptr(), data.data_ptr(),
             out.data_ptr(), q, r, rp, c, int(data.dtype == torch.uint8),
-            build.stream_of(data)))
+            block_q, block_c, build.stream_of(data)))
     return out
 
 

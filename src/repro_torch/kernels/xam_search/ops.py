@@ -470,12 +470,16 @@ def pack_rows(bits: torch.Tensor) -> torch.Tensor:
 
 
 def xam_search_device(keys: torch.Tensor, data: torch.Tensor,
-                      masks: torch.Tensor) -> torch.Tensor:
+                      masks: torch.Tensor, *,
+                      blocks: tuple[int, int] | None = None) -> torch.Tensor:
     """One flat search over tensors on one device: keys/masks (Q, R) int8,
     data (R, C) int8 or (Rp, C) uint8 packed words with ``Rp * 8 >= R``.
     Returns the (Q, C) int8 bitmap; an all-zero mask row matches every
     column.  CPU tensors run the plain version, CUDA tensors the kernel
-    (on the current stream, not synchronised)."""
+    (on the current stream, not synchronised) with ``blocks`` =
+    ``(block_q, block_c)``, by default ``autotune.search_blocks`` for the
+    search's shape, plane format and card.  The pair never changes the
+    bitmap; the plain version ignores it."""
     if keys.dtype != torch.int8 or masks.dtype != torch.int8:
         raise TypeError(f"keys/masks must be int8, got {keys.dtype}/"
                         f"{masks.dtype}")
@@ -494,8 +498,13 @@ def xam_search_device(keys: torch.Tensor, data: torch.Tensor,
         count_launch("FLAT_LAUNCH_COUNT")
         return xam_search_plain(keys, data, masks)
     if data.device.type == "cuda":
+        if blocks is None:
+            blocks = autotune.search_blocks(q, data.shape[1],
+                                            plane_format_of(data),
+                                            data.device)
         out = kernel.xam_search_cuda(keys.contiguous(), data.contiguous(),
-                                     masks.contiguous())
+                                     masks.contiguous(), block_q=blocks[0],
+                                     block_c=blocks[1])
         count_launch("FLAT_LAUNCH_COUNT")
         return out
     raise ValueError(f"unsupported device {data.device}")

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.common import pack_bits_np
-from repro_torch.kernels.edge_cases import hop_edge_case, multiset_edge_case
+from repro_torch.kernels.edge_cases import (FLAT_RAGGED_SHAPE,
+                                            flat_edge_case, hop_edge_case,
+                                            multiset_edge_case)
 from repro_torch.kernels.xam_search import ops
 from repro_torch.kernels.xam_search.ref import xam_search_multiset_plain
 
@@ -215,6 +217,39 @@ def test_flat_search_unaligned_plane_view(packed):
     assert view.data_ptr() % 4 != 0 and view.is_contiguous()
     got = ops.xam_search_device(k, view, m)
     assert torch.equal(got, xam_search_plain(k, d, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("q,r,c", [(1, 64, 512), (64, 64, 512),
+                                   (4096, 32, 65536), FLAT_RAGGED_SHAPE])
+def test_flat_search_every_candidate_pair_matches_plain(q, r, c, packed):
+    """The autotune sweep's shapes and the ragged edge case: every
+    candidate ``(block_q, block_c)`` and the cold pair give the plain
+    version's bitmap; the launcher refuses a pair outside its range and
+    launches nothing."""
+    _needs_card()
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.xam_search import kernel
+    from repro_torch.kernels.xam_search.ref import xam_search_plain
+    keys, masks, data = flat_edge_case(q + r + c, q, r, c)
+    k, m, d = (torch.from_numpy(x).cuda() for x in (keys, masks, data))
+    if packed:
+        d = ops.pack_rows(d)
+    want = xam_search_plain(k, d, m)
+    pairs = [kernel.flat_geometry(q, c)] + [
+        (bq, bc) for bq in autotune.BLOCK_Q_CANDIDATES
+        for bc in autotune.BLOCK_C_CANDIDATES]
+    for blocks in pairs:
+        got = ops.xam_search_device(k, d, m, blocks=blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), blocks
+    assert bool((want[0, c - 1] == 1).item())
+    before = ops.FLAT_LAUNCH_COUNT
+    for blocks in ((8, 64), (8, 2048), (8, 384), (0, 128), (-1, 256)):
+        with pytest.raises(RuntimeError):
+            ops.xam_search_device(k, d, m, blocks=blocks)
+    assert ops.FLAT_LAUNCH_COUNT == before
 
 
 _SM_N = 2 * 16384 + 37          # two 16 KiB tiles and a ragged tail

@@ -20,6 +20,7 @@ from repro.kernels.xam_search.ref import xam_match_index_ref, xam_search_ref
 from repro_torch.core.api import MonarchDevice as TDevice
 from repro_torch.data import pipeline as t_pipe
 from repro_torch.kernels.common import pack_bits_np
+from repro_torch.kernels.edge_cases import FLAT_RAGGED_SHAPE, flat_edge_case
 from repro_torch.kernels.xam_search import ops as t_ops
 from repro_torch.kernels.xam_search.ref import (xam_match_index_plain,
                                                 xam_search_plain)
@@ -59,6 +60,22 @@ def test_flat_search_matches_reference(q, r, c, plane_format, rng):
     assert got.dtype == np.int8 and got.shape == (q, c)
     np.testing.assert_array_equal(got, np.asarray(want))
     assert (got[::4] == 1).all()                # all-masked match all
+
+
+@pytest.mark.parametrize("plane_format", ["int8", "packed8"])
+def test_ragged_edge_case_matches_reference(plane_format):
+    """The flat search's ragged edge case (C not a multiple of 4, R not a
+    multiple of 32 or 8, Q over two staged chunks), which the card holds
+    every candidate block pair to: the plain version against the
+    reference's oracle, planted hits and all-zero mask rows included."""
+    keys, masks, data = flat_edge_case(0, *FLAT_RAGGED_SHAPE)
+    q, r, c = FLAT_RAGGED_SHAPE
+    assert c % 4 and r % 32 and r % 8
+    got = _search(keys, data, masks, plane_format=plane_format)
+    want = xam_search_ref(*(jnp.asarray(x) for x in (keys, data, masks)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got[0, c - 1] == 1 and (got[1::7] == 1).all()
+    assert got[3::3].any(axis=1).all()
 
 
 @pytest.mark.parametrize("scoring", ["int8", "f32"])

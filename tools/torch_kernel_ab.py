@@ -9,7 +9,9 @@ parent commit, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists).  The script builds that tree's four kernel sources
 (``xam_search.cu``, ``xam_multiset.cu``, ``hopscotch_lookup.cu``,
 ``string_match.cu``) beside this tree's, with this tree's
-``kernels/build.py`` (the launchers' C signatures are the same), holds
+``kernels/build.py`` (the launchers' C signatures are the same, but for
+the flat search's block pair, which a tree's launcher takes or not: it
+gets the cold pair, ``kernel.flat_geometry``, where it does), holds
 every library exactly against the plain versions, and times them on one
 CUDA card in turns old, new, new, old at the main paths' shapes:
 ``chip_smoke.CudaTimer.graph_ms`` (CUDA-graph replay, cold L2).  It also
@@ -51,11 +53,31 @@ SM_CASES = [("P=12", 12, False), ("P=1", 1, False), ("P=4096", 4096, False),
             ("repeated byte, P=64", 64, True)]
 
 
+#: The two signatures a tree's flat launcher may end with (whitespace
+#: folded), and whether it takes the block pair: a tree from before the
+#: launcher took one has the second.
+FLAT_SIGNATURES = {"int packed, int block_q, int block_c, void* stream)": True,
+                   "int packed, void* stream)": False}
+
+
+def takes_pair(root: pathlib.Path) -> bool:
+    """Whether ``root``'s flat launcher takes a block pair; exits when its
+    signature is neither of ``FLAT_SIGNATURES``."""
+    src = " ".join((root / SOURCES["xam_search"][0]).read_text().split())
+    found = [pair for sig, pair in FLAT_SIGNATURES.items() if sig in src]
+    if len(found) != 1:
+        raise SystemExit(f"{root}: the flat launcher's signature is none of "
+                         f"{sorted(FLAT_SIGNATURES)}")
+    return found[0]
+
+
 def load(root: pathlib.Path, prefix: str):
     from repro_torch.kernels import build
     src, argtypes = SOURCES[prefix]
     kl = build.compile_and_load(root / src, prefix)
     launch = getattr(kl.lib, f"{prefix}_launch")
+    if prefix == "xam_search" and takes_pair(root):
+        argtypes = argtypes[:-1] + [_CI, _CI, _VP]
     launch.argtypes = argtypes
     launch.restype = _CI
     return kl
@@ -76,12 +98,13 @@ def main() -> int:
         print("no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import (HBM_BYTES_PER_S, CudaTimer, hop_bytes, hop_case,
+    from chip_smoke import (CudaTimer, h100, hop_bytes, hop_case,
                             nvidia_smi, search_case)
     from repro_torch.apps.stringmatch import make_corpus
     from repro_torch.kernels.build import stream_of
     from repro_torch.kernels.hopscotch.ref import hopscotch_lookup_plain
     from repro_torch.kernels.string_match.ref import string_match_plain
+    from repro_torch.kernels.xam_search.kernel import flat_geometry
     from repro_torch.kernels.xam_search.ops import pack_rows
     from repro_torch.kernels.xam_search.ref import (xam_search_multiset_plain,
                                                     xam_search_plain)
@@ -107,7 +130,7 @@ def main() -> int:
         for tree in ("old", "new", "new", "old"):
             t[tree].append(timer.graph_ms(fns[tree], reps=reps))
         row = {"shape": shape, "old_ms": t["old"], "new_ms": t["new"],
-               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_ms": n_bytes / h100().hbm_bw * 1e3,
                "bytes": int(n_bytes), **extra, "card": smi}
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -140,10 +163,11 @@ def main() -> int:
 
             def fn(tree, dd=dd, out=out):
                 kl = libs[(tree, "xam_search")]
+                pair = flat_geometry(q, c) if takes_pair(roots[tree]) else ()
                 return lambda: kl.check(kl.lib.xam_search_launch(
                     k.data_ptr(), m.data_ptr(), dd.data_ptr(),
                     out[tree].data_ptr(), q, r, dd.shape[0], c,
-                    int(packed), stream_of(dd)))
+                    int(packed), *pair, stream_of(dd)))
             fns = {t: fn(t) for t in ("old", "new")}
             check(fns, out, xam_search_plain(k, dd, m), f"flat search {name}")
             fmt = "packed8" if packed else "int8"
